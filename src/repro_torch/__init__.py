@@ -1,0 +1,53 @@
+"""PyTorch/CUDA port of the ``repro`` package.
+
+The same surface as ``repro`` (see its ``__init__``) for what the port
+provides so far: :func:`solve` / :class:`EngineOptions` on the block
+Gauss–Seidel engine (``engine="async_block"``, backends ``"torch"`` and
+``"kernel"``, ``device="cuda"`` unless asked otherwise), the algorithm
+constructors, and :class:`Graph`. GoGraph ordering lives in
+``repro_torch.core``. Attributes resolve lazily (PEP 562), and the package
+imports neither ``jax`` nor any module of ``repro``.
+"""
+from __future__ import annotations
+
+__all__ = [
+    # unified engine entry point
+    "solve",
+    "EngineOptions",
+    "EngineOptionsError",
+    "EngineUnsupportedError",
+    # algorithms
+    "get_algorithm",
+    "ALGORITHMS",
+    "AlgoInstance",
+    "personalized_pagerank",
+    "multi_source_sssp",
+    "make_personalized_pagerank",
+    "make_multi_source_sssp",
+    "remake",
+    # engine shim (legacy spelling; thin wrapper over solve())
+    "run_async_block",
+    "Graph",
+]
+
+_ENGINE = {
+    "solve", "EngineOptions", "EngineOptionsError", "EngineUnsupportedError",
+    "get_algorithm", "ALGORITHMS", "AlgoInstance", "personalized_pagerank",
+    "multi_source_sssp", "make_personalized_pagerank",
+    "make_multi_source_sssp", "remake", "run_async_block",
+}
+_GRAPHS = {"Graph": "repro_torch.graphs.graph"}
+
+
+def __getattr__(name: str):
+    import importlib
+
+    if name in _ENGINE:
+        return getattr(importlib.import_module("repro_torch.engine"), name)
+    if name in _GRAPHS:
+        return getattr(importlib.import_module(_GRAPHS[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))
