@@ -4,17 +4,28 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernel from ``src/repro_torch/csrc`` (into
-``build/repro_torch/``), holds the kernel against its plain PyTorch version
-on small cases, drives the port's main path — GoGraph order, then
-``solve(engine="async_block", backend="kernel")`` on a batch of 64
-personalized-PageRank queries and 64 SSSP queries over a 100,000-vertex
-graph — checks the PPR solve against the same path run through the
-kernel's plain version, both solves against the torch-ops backend, and the
-paper's result (fewer rounds for PageRank under GoGraph than under the
-default order), and at the main path's shape holds one sweep of the kernel
-against its plain version, checks that it repeats bit for bit, and times it
-beside its plain version and its bound.
+It builds the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+each, all at once, into ``build/repro_torch/``) and holds each against its
+plain PyTorch version on small cases. Then it drives the port's paths over a
+100,000-vertex graph:
+
+* the main path — GoGraph order, then ``solve(engine="async_block",
+  backend="kernel")`` on a batch of 64 personalized-PageRank queries and 64
+  SSSP queries — checked against the same path through the sweep kernel's
+  plain version, against the torch-ops backend, and for the paper's result
+  (fewer PageRank rounds under GoGraph than under the default order); at
+  its shape one sweep of the kernel is held against its plain version,
+  repeated bit for bit and timed beside its plain version and its bound;
+* the push path — ``solve(engine="auto")`` routing the d = 64 PPR batch and
+  a one-seed PPR query to the push engine and global PageRank to the sweep
+  kernel; ``run_incremental`` absorbing two graph deltas into the converged
+  d = 64 SSSP state, by push, by the warm sweep path and cold, all bitwise
+  equal; the push and sweep paths once more under
+  ``transfer_guard="disallow"``; one push round of the PPR solve, captured
+  at full size, held against the push kernel's plain version and timed;
+* the BSR product's entry point ``repro_torch.kernels.bsr_spmm`` on the PPR
+  (plus_times) and SSSP (min_plus) operands at full size, held against its
+  plain version and timed beside ``torch.sparse.mm`` on the same BSR tiles.
 
 Any failure raises and exits non-zero. The second-to-last line of standard
 output is the kernels' JSON record, the last line the device JSON. Detailed
@@ -24,11 +35,14 @@ the kernel-vs-plain phase.
 """
 from __future__ import annotations
 
+import importlib
+import itertools
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -46,6 +60,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FMA_OPS_PER_S = 67e12
 F32_NON_FMA_OPS_PER_S = F32_FMA_OPS_PER_S / 2
 
+# where every tensor of the run lives (the card; a rehearsal on the CPU may
+# point it elsewhere)
+DEVICE = "cuda"
+
 PAIRS = [
     ("plus_times", "replace"),
     ("min_plus", "min_old"),
@@ -53,10 +71,17 @@ PAIRS = [
     ("max_times", "max_old"),
 ]
 RECORD: dict = {"cases": [], "phases": {}}
+KERNELS = ("gs_sweep", "push_scatter", "bsr_spmm")
 
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def kmod(name: str):
+    """A kernel module of the port (``repro_torch.kernels`` exports the
+    entry points ``bsr_spmm`` and ``gs_sweep`` under the modules' names)."""
+    return importlib.import_module(f"repro_torch.kernels.{name}")
 
 
 def phase_env() -> tuple[str, str]:
@@ -77,17 +102,21 @@ def phase_env() -> tuple[str, str]:
 
 
 def phase_build() -> None:
+    """One nvcc per kernel source, all started together."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.load("gs_sweep")
-    info = _build.BUILD_INFO["gs_sweep"]
-    log(f"[build] gs_sweep.cu for sm_90a: {info['seconds']:.1f} s nvcc, "
-        f"{time.perf_counter() - t0:.1f} s total -> {info['path']}")
-    for line in sorted({ln.strip() for ln in info["ptxas"].splitlines()
-                        if "registers" in ln or "spill" in ln}):
-        log(f"[build] {line}")
-    RECORD["build"] = {k: info[k] for k in ("seconds", "path", "ptxas")}
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.load, KERNELS))
+    RECORD["build"] = {}
+    for name in KERNELS:
+        info = _build.BUILD_INFO[name]
+        log(f"[build] {name}.cu for sm_90a: {info['seconds']:.1f} s nvcc -> {info['path']}")
+        for line in sorted({ln.strip() for ln in info["ptxas"].splitlines()
+                            if "registers" in ln or "spill" in ln}):
+            log(f"[build] {line}")
+        RECORD["build"][name] = {k: info[k] for k in ("seconds", "path", "ptxas")}
+    log(f"[build] {time.perf_counter() - t0:.1f} s for all kernels")
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +147,7 @@ def _case_operands(pair: str, n: int, bs: int, d: int, seed: int):
         algo.x0 = np.concatenate([a.x0 for a in cols], axis=1)
         algo.c = np.repeat(algo.c, d, axis=1)
         algo.fixed = np.repeat(algo.fixed, d, axis=1)
-    ops = pack_algorithm(algo, bs, device="cuda")
+    ops = pack_algorithm(algo, bs, device=DEVICE)
     return algo, ops, srcs
 
 
@@ -147,10 +176,10 @@ def _compare(pair: str, k_out, p_out) -> tuple[bool, float]:
     return ok, err
 
 
-def phase_kernels() -> dict:
+def phase_kernels() -> None:
     from repro_torch.graphs.blocked import frontier_blocks
-    from repro_torch.kernels import gs_sweep as K
 
+    K = kmod("gs_sweep")
     n_cases = 0
     failures = []
     t0 = time.perf_counter()
@@ -168,11 +197,11 @@ def phase_kernels() -> dict:
         algo, ops, srcs = cache[key]
         nb = ops["rowptr"].shape[0] - 1
         if fr == "all":
-            dirty = torch.ones(nb, dtype=torch.int32, device="cuda")
+            dirty = torch.ones(nb, dtype=torch.int32, device=DEVICE)
         else:
             mask = np.zeros(n, bool)
             mask[srcs] = True
-            dirty = torch.as_tensor(frontier_blocks(mask, n, bs)).cuda()
+            dirty = torch.as_tensor(frontier_blocks(mask, n, bs)).to(DEVICE)
         k_out = _run_pair(K.gs_multisweep, algo, ops, bs, sweeps, dirty)
         p_out = _run_pair(K.gs_multisweep_plain, algo, ops, bs, sweeps, dirty)
         ok, err = _compare(pair, k_out, p_out)
@@ -187,18 +216,164 @@ def phase_kernels() -> dict:
     # run-to-run determinism of the plus_times fold order
     algo, ops, _ = _case_operands("plus_times", 311, 64, 64, seed=5)
     nb = ops["rowptr"].shape[0] - 1
-    ones = torch.ones(nb, dtype=torch.int32, device="cuda")
+    ones = torch.ones(nb, dtype=torch.int32, device=DEVICE)
     a = _run_pair(K.gs_multisweep, algo, ops, 64, 16, ones)
     b = _run_pair(K.gs_multisweep, algo, ops, 64, 16, ones)
     determ = all(torch.equal(u, v) for u, v in zip(a, b))
-    line = {"kernels": [{"name": "gs_multisweep", "cases": n_cases,
-                         "ok": not failures and determ,
-                         "deterministic": determ}]}
+    line = {"name": "gs_multisweep", "cases": n_cases,
+            "ok": not failures and determ, "deterministic": determ}
     log(f"[kernels] {json.dumps(line)} ({time.perf_counter() - t0:.1f} s)")
     if failures or not determ:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{len(failures)} case(s), deterministic={determ}")
-    return line
+    _push_cases()
+    _spmm_cases()
+
+
+PUSH_HUB, PUSH_LOOP, PUSH_DUP = 0, 5, 7
+
+
+def _push_case(pair: str, n: int, d: int, buckets: int, seed: int) -> dict:
+    """Operands of one push round on the card: a graph of n vertices with a
+    self-loop, a hub of degree 150 and a duplicated edge; a slot list of
+    120 vertices (those three among them) with -1 pads inside and after."""
+    from repro_torch.engine.algorithms import BIG
+    from repro_torch.graphs import generators as gen
+    from repro_torch.graphs.graph import Graph
+
+    g = gen.scrambled(gen.powerlaw_cluster(n, 3, p=0.5, seed=seed), seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    hub_dst = rng.choice(np.arange(1, n), size=150, replace=False)
+    src = np.concatenate([g.src, np.full(150, PUSH_HUB), [PUSH_LOOP, PUSH_DUP, PUSH_DUP]])
+    dst = np.concatenate([g.dst, hub_dst, [PUSH_LOOP, 8, 8]])
+    w = rng.uniform(0.1, 1.0, size=len(src)).astype(np.float32)
+    indptr, nbrs, eid = Graph(n, src.astype(np.int32), dst.astype(np.int32), w).csr()
+    fill = {"plus_times": None, "min_plus": BIG}.get(pair, -BIG)
+    lo, hi = (0.0, 1.0) if pair != "min_plus" else (0.0, 5.0)
+    p = rng.uniform(lo, hi, (n, d))
+    r = rng.uniform(-0.1, 0.2, (n, d)) if pair == "plus_times" else rng.uniform(lo, hi, (n, d))
+    if fill is not None:
+        p[rng.random((n, d)) < 0.3] = fill
+        r[rng.random((n, d)) < 0.3] = fill
+    ids = rng.choice(np.arange(n), size=120, replace=False)
+    ids = np.concatenate([[PUSH_HUB, PUSH_LOOP, PUSH_DUP],
+                          ids[~np.isin(ids, [PUSH_HUB, PUSH_LOOP, PUSH_DUP])]])
+    rng.shuffle(ids)
+    vid = ids.astype(np.int64)
+    for pos in rng.choice(len(vid), size=9, replace=False):
+        vid = np.insert(vid, pos, -1)
+    cap = -(-len(vid) // buckets)
+    slots = np.full(buckets * cap, -1, np.int64)
+    slots[: len(vid)] = vid
+    safe = np.maximum(slots, 0)
+    seg_s = np.where(slots >= 0, indptr[safe], 0)
+    seg_l = np.where(slots >= 0, indptr[safe + 1] - indptr[safe], 0)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=DEVICE)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
+
+    return {"vid": i32(slots), "seg_start": i32(seg_s), "seg_len": i32(seg_l),
+            "nbrs": i32(nbrs), "ew": f32(w[eid]), "p": f32(p), "r": f32(r),
+            "semiring": pair, "buckets": buckets, "cap": cap}
+
+
+def _push_run(fn, o: dict):
+    out = fn(o["vid"], o["seg_start"], o["seg_len"], o["nbrs"], o["ew"],
+             o["p"].clone(), o["r"].clone(), semiring=o["semiring"],
+             buckets=o["buckets"], cap=o["cap"])
+    torch.cuda.synchronize()
+    return out
+
+
+def _push_cases() -> None:
+    """push_scatter against its plain version: all four semirings, d in
+    {1, 3, 64}, 1 or 4 buckets; p, r, pushed and edges equal, and the
+    kernel repeats bit for bit."""
+    P = kmod("push_scatter")
+    t0 = time.perf_counter()
+    failures = []
+    n_cases = 0
+    for (pair, _), d, buckets in itertools.product(PAIRS, (1, 3, 64), (1, 4)):
+        o = _push_case(pair, 311, d, buckets, seed=71)
+        k_out = _push_run(P.push_scatter, o)
+        again = _push_run(P.push_scatter, o)
+        p_out = _push_run(P.push_scatter_plain, o)
+        same = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
+        determ = all(torch.equal(a, b) for a, b in zip(k_out, again))
+        err = max(float((a - b).abs().max()) for a, b in zip(k_out[:2], p_out[:2]))
+        case = {"kernel": "push_scatter", "pair": pair, "d": d, "buckets": buckets,
+                "ok": same and determ, "deterministic": determ, "max_abs_err": err,
+                "pushed": k_out[2][:, 0].tolist(), "edges": k_out[3][:, 0].tolist()}
+        RECORD["cases"].append(case)
+        n_cases += 1
+        if not case["ok"]:
+            failures.append(case)
+            log(f"[kernels] MISMATCH {case}")
+    line = {"name": "push_scatter", "cases": n_cases, "ok": not failures}
+    log(f"[kernels] {json.dumps(line)} ({time.perf_counter() - t0:.1f} s)")
+    if failures:
+        raise AssertionError(f"push_scatter disagrees with its plain version or does "
+                             f"not repeat: {len(failures)} case(s)")
+
+
+def _spmm_close(pair: str, got, want) -> bool:
+    if pair == "plus_times":
+        return torch.allclose(got, want, rtol=1e-5, atol=1e-7 * float(want.abs().max()))
+    return torch.equal(got, want)
+
+
+def _spmm_cases() -> None:
+    """bsr_spmm against its plain version: all four semirings, bs in
+    {16, 64, 128}, d in {1, 3, 64}, n = 311 with an empty row-block; the
+    lattice pairs equal, plus_times within rtol 1e-5 and an atol of 1e-7
+    of the largest value; the kernel repeats bit for bit and gives the same
+    bits through the entry point's narrowed column chunk."""
+    from repro_torch.engine.algorithms import BIG
+    from repro_torch.graphs import generators as gen
+    from repro_torch.graphs.blocked import pack_bsr_flat
+    from repro_torch.graphs.graph import Graph
+    from repro_torch.kernels import bsr_spmm as entry
+    from repro_torch.kernels.semirings import TILE_FILL
+
+    B = kmod("bsr_spmm")
+    t0 = time.perf_counter()
+    failures = []
+    n_cases = 0
+    base = gen.with_random_weights(
+        gen.scrambled(gen.powerlaw_cluster(311, 4, p=0.5, seed=51), seed=52),
+        lo=0.1, hi=1.0, seed=53)
+    for (pair, _), bs, d in itertools.product(PAIRS, (16, 64, 128), (1, 3, 64)):
+        keep = (base.dst // bs) != 1  # row-block 1 has no tiles
+        g = Graph(base.n, base.src[keep], base.dst[keep], base.w[keep])
+        bsr = pack_bsr_flat(g, bs, fill=TILE_FILL[pair], device=DEVICE)
+        rng = np.random.default_rng(61 + d)
+        x = rng.uniform(0.0, 5.0, (bsr.nb * bs, d))
+        if pair in ("min_plus", "max_min"):
+            x[rng.random(x.shape) < 0.3] = BIG if pair == "min_plus" else -BIG
+        x = torch.as_tensor(x.astype(np.float32), device=DEVICE)
+        args = [torch.as_tensor(a, device=DEVICE) for a in (bsr.rowptr, bsr.tilerows, bsr.tilecols)]
+        args += [bsr.tiles, x]
+        yk = B.bsr_spmm(*args, semiring=pair, bs=bs, dj=d)
+        again = B.bsr_spmm(*args, semiring=pair, bs=bs, dj=d)
+        narrowed = entry(*args, semiring=pair)
+        yp = B.bsr_spmm_plain(*args, semiring=pair, bs=bs, dj=d)
+        torch.cuda.synchronize()
+        ok = _spmm_close(pair, yk, yp) and torch.equal(yk, again) and torch.equal(yk, narrowed)
+        case = {"kernel": "bsr_spmm", "pair": pair, "bs": bs, "d": d, "ok": ok,
+                "max_abs_err": float((yk - yp).abs().max())}
+        RECORD["cases"].append(case)
+        n_cases += 1
+        if not ok:
+            failures.append(case)
+            log(f"[kernels] MISMATCH {case}")
+    line = {"name": "bsr_spmm", "cases": n_cases, "ok": not failures}
+    log(f"[kernels] {json.dumps(line)} ({time.perf_counter() - t0:.1f} s)")
+    if failures:
+        raise AssertionError(f"bsr_spmm disagrees with its plain version: "
+                             f"{len(failures)} case(s)")
 
 
 # ---------------------------------------------------------------------------
@@ -213,15 +388,15 @@ SWEEPS_PER_CALL = 8
 
 def _solve_timed(algo, rank, backend: str, label: str) -> dict:
     from repro_torch import solve
-    from repro_torch.kernels import gs_sweep as K
 
+    K = kmod("gs_sweep")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     t0 = time.perf_counter()
     res = solve(algo, engine="async_block", backend=backend, bs=BS, rank=rank,
                 sweeps_per_call=SWEEPS_PER_CALL if backend == "kernel" else 1,
-                max_iters=2000, device="cuda")
+                max_iters=2000, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     row = {
@@ -248,17 +423,32 @@ def _tile_count(g, rank, bs: int) -> int:
     return int(np.unique(key).size)
 
 
-def _time_cuda(fn, reps: int) -> float:
+def _time_cuda(fn, reps: int, reset=None) -> float:
+    """Mean ms of ``fn`` on the card after one warm-up call. With ``reset``
+    (restores in-place inputs) each call is timed alone, the reset outside
+    the events."""
+    if reset is not None:
+        reset()
     fn()  # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    if reset is None:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    total = 0.0
     for _ in range(reps):
+        reset()
+        start.record()
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def _kernel_entry(algo, bs: int) -> dict:
@@ -267,14 +457,14 @@ def _kernel_entry(algo, bs: int) -> dict:
     lattice pairs; plus_times within rtol 1e-4 and an atol of 1e-7 of the
     largest value); check that the kernel gives the same bits twice; bound
     it from this shape's bytes and operations."""
-    from repro_torch.kernels import gs_sweep as K
     from repro_torch.kernels.ops import pack_algorithm
 
-    ops = pack_algorithm(algo, bs, device="cuda")
+    K = kmod("gs_sweep")
+    ops = pack_algorithm(algo, bs, device=DEVICE)
     nb = ops["rowptr"].shape[0] - 1
     nnz = int(ops["tiles"].shape[0])
     npad, d = ops["x0"].shape
-    ones = torch.ones(nb, dtype=torch.int32, device="cuda")
+    ones = torch.ones(nb, dtype=torch.int32, device=DEVICE)
     x = ops["x0"].clone()
 
     def kern():
@@ -351,7 +541,7 @@ def _kernel_entry(algo, bs: int) -> dict:
     return entry
 
 
-def phase_main() -> list[dict]:
+def phase_main() -> tuple[list[dict], dict]:
     from repro_torch.core.gograph import gograph_order
     from repro_torch.core.metric import block_fresh_fraction, positive_edge_fraction
     from repro_torch.engine import algorithms as A
@@ -453,6 +643,7 @@ def phase_main() -> list[dict]:
     RECORD["phases"]["paper"] = paper
     if not paper["pagerank_rounds_gograph"] < paper["pagerank_rounds_identity"]:
         raise AssertionError(f"GoGraph did not cut PageRank's rounds: {paper}")
+    ppr_x, sssp_x = k_ppr["res"].x, k_sssp["res"].x  # the push path's references
     del k_ppr, k_id, k_sssp, s_id, pr_go, pr_id
 
     # the kernel's time at the main path's shape, beside plain and bound
@@ -462,7 +653,9 @@ def phase_main() -> list[dict]:
         e["launches"] = launches[sem]
         entries.append(e)
     _fixed_cost(g.n, seeds)
-    return entries
+    ctx = {"g": g, "gw": gw, "rank": rank, "ppr": ppr, "sssp": sssp,
+           "ppr_x": ppr_x, "sssp_x": sssp_x}
+    return entries, ctx
 
 
 def _solve_plain_path(algo, rank):
@@ -471,14 +664,14 @@ def _solve_plain_path(algo, rank):
     early-out and batches of sweeps, so only the f32 summation order
     differs."""
     from repro_torch import solve
-    from repro_torch.kernels import gs_sweep as K
 
+    K = kmod("gs_sweep")
     kernel = K.gs_multisweep
     K.gs_multisweep = K.gs_multisweep_plain
     try:
         t0 = time.perf_counter()
         res = solve(algo, engine="async_block", backend="kernel", bs=BS, rank=rank,
-                    sweeps_per_call=SWEEPS_PER_CALL, max_iters=2000, device="cuda")
+                    sweeps_per_call=SWEEPS_PER_CALL, max_iters=2000, device=DEVICE)
         torch.cuda.synchronize()
     finally:
         K.gs_multisweep = kernel
@@ -493,13 +686,13 @@ def _fixed_cost(n: int, seeds) -> None:
     and d (grid barriers, the partial fold and the bookkeeping only)."""
     from repro_torch.engine import algorithms as A
     from repro_torch.graphs.graph import Graph
-    from repro_torch.kernels import gs_sweep as K
     from repro_torch.kernels.ops import pack_algorithm
 
+    K = kmod("gs_sweep")
     empty = Graph(n, np.zeros(0, np.int32), np.zeros(0, np.int32))
-    ops = pack_algorithm(A.personalized_pagerank(empty, seeds=seeds), BS, device="cuda")
+    ops = pack_algorithm(A.personalized_pagerank(empty, seeds=seeds), BS, device=DEVICE)
     nb = ops["rowptr"].shape[0] - 1
-    ones = torch.ones(nb, dtype=torch.int32, device="cuda")
+    ones = torch.ones(nb, dtype=torch.int32, device=DEVICE)
     x = ops["x0"].clone()
     ms = _time_cuda(lambda: K.gs_multisweep(
         ops["rowptr"], ops["tilecols"], ops["revptr"], ops["revrows"], ones,
@@ -508,6 +701,292 @@ def _fixed_cost(n: int, seeds) -> None:
     row = {"nb": nb, "ms_per_sweep": ms, "us_per_block": 1e3 * ms / nb}
     log(f"[time] no-tile sweep {json.dumps(row)}")
     RECORD["phases"]["time_no_tiles"] = row
+
+
+# ---------------------------------------------------------------------------
+# push path and the BSR product at full size
+# ---------------------------------------------------------------------------
+
+PUSH_CAPTURE_SLOTS = 10_000
+
+
+def _counted(run):
+    """Run ``run()`` with every kernel's launch count set to 0 just before;
+    return its result, the wall seconds (ended by a synchronise) and the
+    counts read just after."""
+    for name in KERNELS:
+        kmod(name).reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, {name: kmod(name).launches for name in KERNELS}
+
+
+def _push_row(label: str, res, wall: float, counts: dict, tracer=None, **extra) -> dict:
+    """Print and record one run; with a tracer, also the seconds inside
+    ``solve`` and inside its set-up (the "pack" span: operands, the push
+    engine's initial residual, the kernel round's CSR)."""
+    row = {"label": label, "rounds": int(res.rounds), "converged": bool(res.converged),
+           "wall_s": wall, "launches": counts, **extra}
+    if tracer is not None:
+        for name in ("solve", "pack"):
+            row[f"{name}_s"] = sum(sp.duration_s for sp in tracer.find(name))
+    if res.push_stats is not None:
+        row.update({k: res.push_stats[k] for k in ("pushed", "edges", "touched",
+                                                    "touched_fraction")})
+    log(f"[push] {json.dumps(row)}")
+    RECORD["phases"][label] = row
+    if not res.converged:
+        raise AssertionError(f"{label}: did not converge in {res.rounds} rounds")
+    return row
+
+
+def phase_push(ctx: dict) -> list[dict]:
+    from repro_torch import GraphDelta, estimate_frontier_fraction, run_incremental, solve
+    from repro_torch.engine import algorithms as A
+    from repro_torch.graphs.delta import random_delta
+    from repro_torch.obs.trace import Tracer
+
+    g, gw, rank = ctx["g"], ctx["gw"], ctx["rank"]
+    ppr, sssp = ctx["ppr"], ctx["sssp"]
+    P = kmod("push_scatter")
+
+    # a. the router on the main graph: arms push / push / sweep
+    probes = [("auto_ppr64", ppr, "push"),
+              ("auto_ppr1", A.personalized_pagerank(g, seeds=[5]), "push"),
+              ("auto_pagerank", A.make_pagerank(g), "sweep")]
+    capture: dict = {}
+    kernel = P.push_scatter
+
+    def capturing(vid, seg_start, seg_len, nbrs, ew, p, r, **kw):
+        # one round of the d = 64 PPR push solve with enough slots, taken
+        # before the kernel updates p and r in place
+        if not capture and int((vid >= 0).sum()) >= PUSH_CAPTURE_SLOTS:
+            capture.update(vid=vid.clone(), seg_start=seg_start.clone(),
+                           seg_len=seg_len.clone(), nbrs=nbrs, ew=ew,
+                           p=p.clone(), r=r.clone(), **kw)
+        return kernel(vid, seg_start, seg_len, nbrs, ew, p, r, **kw)
+
+    results = {}
+    push_launches = 0
+    for label, algo, arm in probes:
+        est = estimate_frontier_fraction(algo)
+        P.push_scatter = capturing if label == "auto_ppr64" else kernel
+        tr = Tracer()
+        try:
+            res, wall, counts = _counted(lambda: solve(
+                algo, engine="auto", backend="kernel", bs=BS, rank=rank,
+                sweeps_per_call=SWEEPS_PER_CALL, max_iters=2000, device=DEVICE,
+                trace=tr))
+        finally:
+            P.push_scatter = kernel
+        routed = "push" if res.push_stats is not None else "sweep"
+        _push_row(label, res, wall, counts, tr, estimate=est, routed=routed, expected=arm)
+        ran = counts["push_scatter"] if arm == "push" else counts["gs_sweep"]
+        if routed != arm or ran <= 0:
+            raise AssertionError(f"{label}: routed to {routed} with launches {counts}, "
+                                 f"expected the {arm} arm to launch its kernel")
+        if label == "auto_ppr64":
+            push_launches = counts["push_scatter"]
+        results[label] = res
+    # the push engine's contract for a sum semiring: its state solves the
+    # fixpoint equation to eps (residual c + W x - x in f64 on the host; 2 eps
+    # leaves room for the f32 drift of the incrementally kept residual). Its
+    # distance to the sweep's state is printed beside the reference's test
+    # tolerance (20 eps, rtol 1e-5), which the reference's own push engine
+    # exceeds on graphs of this kind (tests/test_torch_push.py).
+    from repro_torch.engine.incremental import dense_residual
+
+    a, b = results["auto_ppr64"].x, ctx["ppr_x"]
+    agree = {"max_residual": float(np.abs(dense_residual(ppr, a)).max()),
+             "residual_bound": 2 * ppr.eps,
+             "max_abs_diff_vs_sweep": float(np.abs(a - b).max()),
+             "within_20eps_rtol_1e-5_of_sweep": bool(
+                 np.allclose(a, b, atol=20 * ppr.eps, rtol=1e-5))}
+    agree["ok"] = agree["max_residual"] <= agree["residual_bound"]
+    log(f"[push] ppr64 push residual and distance to async_block kernel {json.dumps(agree)}")
+    RECORD["phases"]["push_vs_sweep_ppr64"] = agree
+    if not agree["ok"]:
+        raise AssertionError(f"the push solve of the PPR batch is no fixpoint: {agree}")
+
+    # the push path under the transfer guard: the same bits
+    guarded, wall, counts = _counted(lambda: solve(
+        probes[1][1], engine="auto", backend="kernel", bs=BS, rank=rank,
+        sweeps_per_call=SWEEPS_PER_CALL, device=DEVICE, transfer_guard="disallow"))
+    _push_row("auto_ppr1_guarded", guarded, wall, counts)
+    if guarded.x.tobytes() != results["auto_ppr1"].x.tobytes():
+        raise AssertionError("transfer_guard='disallow' changed the push result")
+
+    # b. delta absorption into the converged d = 64 SSSP state
+    rng = np.random.default_rng(7)
+    pick = rng.choice(gw.m, 10, replace=False)
+    rew = GraphDelta(rew_src=gw.src[pick], rew_dst=gw.dst[pick],
+                     rew_w=(gw.weights[pick] * 0.9).astype(np.float32))
+    # 1,000 inserted edges, w ~ U[0.1, 1]; random_delta re-rolls self-loops
+    # and existing pairs: the flat-BSR tiles keep one weight per (src, dst)
+    # pair, so a parallel edge would part the sweep path from the push path
+    ins = random_delta(gw, frac_add=1000 / gw.m, w_lo=0.1, w_hi=1.0, seed=8)
+    assert len(ins.add_src) == 1000
+    prior = ctx["sssp_x"]
+    for label, delta in (("delta_reweight10", rew), ("delta_insert1000", ins)):
+        new = A.remake(sssp, delta.apply(gw))
+        trs = [Tracer() for _ in range(3)]
+        rp, wp, cp = _counted(lambda: run_incremental(
+            new, sssp, prior, engine="push", backend="kernel", device=DEVICE,
+            trace=trs[0]))
+        _push_row(f"{label}_push", rp, wp, cp, trs[0])
+        rw, ww, cw = _counted(lambda: run_incremental(
+            new, sssp, prior, engine="async_block", backend="kernel", bs=BS,
+            sweeps_per_call=SWEEPS_PER_CALL, rank=rank, device=DEVICE, trace=trs[1]))
+        _push_row(f"{label}_warm_block", rw, ww, cw, trs[1])
+        rc, wc, cc = _counted(lambda: solve(
+            new, engine="async_block", backend="kernel", bs=BS, rank=rank,
+            sweeps_per_call=SWEEPS_PER_CALL, device=DEVICE, transfer_guard="disallow",
+            trace=trs[2]))
+        _push_row(f"{label}_cold_guarded", rc, wc, cc, trs[2])
+        same = (rp.x.tobytes() == rc.x.tobytes() and rw.x.tobytes() == rc.x.tobytes())
+        if not same or cp["push_scatter"] <= 0 or cw["gs_sweep"] <= 0:
+            raise AssertionError(f"{label}: push, warm block and cold differ "
+                                 f"(bitwise {same}) or a kernel did not launch")
+    del results, guarded
+
+    # c. one captured push round at full size against the plain version
+    entries = [_push_entry(capture, push_launches)]
+    # d. the BSR product's entry point at full size
+    ppr_rel = ppr.relabel(rank)
+    sssp_rel = sssp.relabel(rank)
+    from repro_torch.engine.harness import permute_state
+
+    entries.append(_spmm_entry(ppr_rel, permute_state(ctx["ppr_x"], rank)))
+    entries.append(_spmm_entry(sssp_rel, permute_state(ctx["sssp_x"], rank)))
+    return entries
+
+
+def _push_entry(capture: dict, launches: int) -> dict:
+    """The captured round: kernel against plain version (p, r, pushed and
+    edges equal), the kernel twice bit for bit, times and bound."""
+    if not capture:
+        raise AssertionError(f"no push round of the PPR batch had "
+                             f">= {PUSH_CAPTURE_SLOTS} slots")
+    P = kmod("push_scatter")
+    o = capture
+    p, r = o["p"].clone(), o["r"].clone()
+
+    def reset():
+        p.copy_(o["p"])
+        r.copy_(o["r"])
+
+    def call(fn):
+        return fn(o["vid"], o["seg_start"], o["seg_len"], o["nbrs"], o["ew"], p, r,
+                  semiring=o["semiring"], buckets=o["buckets"], cap=o["cap"])
+
+    reset()
+    k_out = [t.clone() for t in call(P.push_scatter)]
+    reset()
+    again = [t.clone() for t in call(P.push_scatter)]
+    reset()
+    t0 = time.perf_counter()
+    p_out = [t.clone() for t in call(P.push_scatter_plain)]
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
+    determ = all(torch.equal(a, b) for a, b in zip(k_out, again))
+    err = max(float((a - b).abs().max()) for a, b in zip(k_out[:2], p_out[:2]))
+    ms = _time_cuda(lambda: call(P.push_scatter), reps=5, reset=reset)
+    plain_ms = _time_cuda(lambda: call(P.push_scatter_plain), reps=1, reset=reset)
+    n, d = p.shape
+    slots = int((o["vid"] >= 0).sum())
+    edges = int(o["seg_len"].sum())
+    nbytes = slots * 4 * d * 4 + edges * (8 + 2 * d * 4)
+    nops = (2 * edges + slots) * d
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * nops / F32_NON_FMA_OPS_PER_S
+    entry = {
+        "name": "push_scatter", "route": "cuda",
+        "source": "src/repro_torch/csrc/push_scatter.cu",
+        "replaces": "src/repro/kernels/push_scatter.py:180",
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    RECORD["phases"]["time_push_scatter"] = {
+        **entry, "slots": slots, "buckets": o["buckets"], "cap": o["cap"], "edges": edges,
+        "n": n, "d": d, "bytes": nbytes, "ops": nops, "agrees_with_plain": same,
+        "deterministic": determ, "plain_first_call_s": plain_s,
+    }
+    log(f"[time] {json.dumps(RECORD['phases']['time_push_scatter'])}")
+    if not (same and determ):
+        raise AssertionError(f"push_scatter at full size: equal to its plain version "
+                             f"{same}, deterministic {determ}, max abs err {err}")
+    return entry
+
+
+def _spmm_entry(algo, x_rel: np.ndarray) -> dict:
+    """One synchronous round through ``repro_torch.kernels.bsr_spmm`` at the
+    main path's shape (bs 64, the converged state as input): launched once
+    through the entry point with the counts at 0, then held against the
+    plain version, repeated bit for bit, timed beside its plain version, its
+    bound and, for plus_times, ``torch.sparse.mm`` on the same BSR tiles."""
+    from repro_torch.graphs.blocked import pad_state
+    from repro_torch.kernels import bsr_spmm as entry_point
+    from repro_torch.kernels.ops import pack_algorithm
+
+    B = kmod("bsr_spmm")
+    ops = pack_algorithm(algo, BS, device=DEVICE)
+    sem = ops["semiring"]
+    x = torch.as_tensor(pad_state(np.asarray(x_rel, np.float32), BS,
+                                  fill=algo.semiring.identity), device=DEVICE)
+    args = (ops["rowptr"], ops["tilerows"], ops["tilecols"], ops["tiles"], x)
+    y, _, counts = _counted(lambda: entry_point(*args, semiring=sem))
+    launches = counts["bsr_spmm"]
+    npad, d = x.shape
+    dj = min(d, 64)
+    yk = B.bsr_spmm(*args, semiring=sem, bs=BS, dj=dj)
+    again = B.bsr_spmm(*args, semiring=sem, bs=BS, dj=dj)
+    yp = B.bsr_spmm_plain(*args, semiring=sem, bs=BS, dj=dj)
+    torch.cuda.synchronize()
+    agree = _spmm_close(sem, yk, yp)
+    determ = torch.equal(yk, again) and torch.equal(yk, y)
+    err = float((yk - yp).abs().max())
+    ms = _time_cuda(lambda: B.bsr_spmm(*args, semiring=sem, bs=BS, dj=dj), reps=3)
+    plain_ms = _time_cuda(lambda: B.bsr_spmm_plain(*args, semiring=sem, bs=BS, dj=dj), reps=1)
+    library_ms, library_err = None, None
+    if sem == "plus_times":
+        a = torch.sparse_bsr_tensor(ops["rowptr"], ops["tilecols"], ops["tiles"],
+                                    size=(npad, npad), check_invariants=False)
+        library_ms = _time_cuda(lambda: torch.sparse.mm(a, x), reps=3)
+        library_err = float((torch.sparse.mm(a, x) - yk).abs().max())
+    nb = ops["rowptr"].shape[0] - 1
+    nnz = int(ops["tiles"].shape[0])
+    nbytes = nnz * BS * BS * 4 + 2 * npad * d * 4 + (nb + 1 + nnz) * 4
+    nops = 2 * nnz * BS * BS * d
+    rate = F32_FMA_OPS_PER_S if sem == "plus_times" else F32_NON_FMA_OPS_PER_S
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * nops / rate
+    entry = {
+        "name": f"bsr_spmm[{sem}]", "route": "cuda",
+        "source": "src/repro_torch/csrc/bsr_spmm.cu",
+        "replaces": "src/repro/kernels/bsr_spmm.py:77",
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+    }
+    tag = f"time_bsr_spmm_{sem}"
+    RECORD["phases"][tag] = {**entry, "nnz": nnz, "nb": nb, "d": d, "bytes": nbytes,
+                             "ops": nops, "agrees_with_plain": agree,
+                             "deterministic": determ, "library_max_abs_err": library_err}
+    log(f"[time] {json.dumps(RECORD['phases'][tag])}")
+    if not (agree and determ and launches == 1):
+        raise AssertionError(f"{entry['name']} at full size: agrees with its plain "
+                             f"version {agree}, deterministic {determ}, entry-point "
+                             f"launches {launches}, max abs err {err}")
+    del ops, x, y, yk, again, yp
+    torch.cuda.empty_cache()
+    return entry
 
 
 def main() -> int:
@@ -520,7 +999,8 @@ def main() -> int:
     phase_kernels()
     if "--only-kernels" in sys.argv[1:]:
         return 0
-    entries = phase_main()
+    entries, ctx = phase_main()
+    entries += phase_push(ctx)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     RECORD["seconds"] = time.perf_counter() - t0

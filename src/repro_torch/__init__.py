@@ -2,11 +2,13 @@
 
 The same surface as ``repro`` (see its ``__init__``) for what the port
 provides so far: :func:`solve` / :class:`EngineOptions` on the block
-Gauss–Seidel engine (``engine="async_block"``, backends ``"torch"`` and
-``"kernel"``, ``device="cuda"`` unless asked otherwise), the algorithm
-constructors, and :class:`Graph`. GoGraph ordering lives in
-``repro_torch.core``. Attributes resolve lazily (PEP 562), and the package
-imports neither ``jax`` nor any module of ``repro``.
+Gauss–Seidel engine (``engine="async_block"``), the residual-push engine
+(``engine="push"``) and the frontier-size router (``engine="auto"``), with
+backends ``"torch"`` and ``"kernel"`` and ``device="cuda"`` unless asked
+otherwise; :func:`run_incremental` with :class:`GraphDelta` for evolving
+graphs; the algorithm constructors; and :class:`Graph`. GoGraph ordering
+lives in ``repro_torch.core``. Attributes resolve lazily (PEP 562), and the
+package imports neither ``jax`` nor any module of ``repro``.
 """
 from __future__ import annotations
 
@@ -25,8 +27,15 @@ __all__ = [
     "make_personalized_pagerank",
     "make_multi_source_sssp",
     "remake",
-    # engine shim (legacy spelling; thin wrapper over solve())
+    # engine shims (legacy spellings; thin wrappers over solve())
     "run_async_block",
+    "run_push",
+    "estimate_frontier_fraction",
+    # incremental
+    "run_incremental",
+    "warm_state",
+    "permute_state",
+    "GraphDelta",
     "Graph",
 ]
 
@@ -34,9 +43,11 @@ _ENGINE = {
     "solve", "EngineOptions", "EngineOptionsError", "EngineUnsupportedError",
     "get_algorithm", "ALGORITHMS", "AlgoInstance", "personalized_pagerank",
     "multi_source_sssp", "make_personalized_pagerank",
-    "make_multi_source_sssp", "remake", "run_async_block",
+    "make_multi_source_sssp", "remake", "run_async_block", "run_push",
+    "estimate_frontier_fraction", "run_incremental", "warm_state",
+    "permute_state",
 }
-_GRAPHS = {"Graph": "repro_torch.graphs.graph"}
+_GRAPHS = {"GraphDelta": "repro_torch.graphs.delta", "Graph": "repro_torch.graphs.graph"}
 
 
 def __getattr__(name: str):

@@ -1,5 +1,6 @@
 """Iterative engines of the port: algorithm specs, round drivers, the block
-Gauss–Seidel engine and the :func:`solve` entry point.
+Gauss–Seidel and residual-push engines, incremental delta absorption and the
+:func:`solve` entry point.
 
 Names resolve lazily so that ``repro_torch.engine.algorithms`` can be
 imported without the engine stack.
@@ -21,6 +22,11 @@ _NAMES = {
     "solve": "api",
     "run_async_block": "async_block",
     "RunResult": "convergence",
+    "estimate_frontier_fraction": "push",
+    "run_push": "push",
+    "permute_state": "incremental",
+    "run_incremental": "incremental",
+    "warm_state": "incremental",
 }
 
 __all__ = sorted(_NAMES)

@@ -8,7 +8,8 @@ pass, one exception family:
   meaningless option combination.
 * :class:`EngineUnsupportedError` (an :class:`EngineOptionsError` and a
   ``NotImplementedError``) — a meaningful combination this package does not
-  implement, including the engines the port has not reached yet.
+  implement, including the engines the port has not reached yet (``sync``
+  and ``distributed``).
 
 Backends: ``"torch"`` (torch ops, the reference's ``"jax"``) and
 ``"kernel"`` (the hand-written CUDA kernel, the reference's ``"pallas"``).
@@ -35,8 +36,6 @@ BACKENDS = ("torch", "kernel")
 _NOT_PORTED = {
     "sync": "ROADMAP §A item 2 (engine/sync.py)",
     "distributed": "ROADMAP §A item 10 (engine/distributed.py)",
-    "push": "ROADMAP §A item 7 (engine/push.py, kernel push_scatter)",
-    "auto": "ROADMAP §A item 7 (the frontier-size router needs the push engine)",
 }
 
 
@@ -235,12 +234,16 @@ def solve(
 ) -> "RunResult":
     """Converge ``algo`` with the chosen engine — the single entry path.
 
-    ``engine="async_block"`` (block Gauss–Seidel) is ported; ``"sync"``,
-    ``"distributed"``, ``"push"`` and ``"auto"`` raise
-    :class:`EngineUnsupportedError` naming the ROADMAP item that ports them.
-    ``options`` is an :class:`EngineOptions`; keyword ``overrides`` are
-    applied on top. ``rank=`` runs the solve relabeled and returns the state
-    in the caller's id space.
+    ``engine``: ``"async_block"`` (block Gauss–Seidel), ``"push"``
+    (vertex-granular residual push, `engine.push`) or ``"auto"`` (the
+    frontier-size router: estimate the initial pending fraction with
+    `engine.push.estimate_frontier_fraction` and pick ``"push"`` below
+    ``options.push_threshold``, ``"async_block"`` above or whenever the
+    semiring has no push formulation). ``"sync"`` and ``"distributed"``
+    raise :class:`EngineUnsupportedError` naming the ROADMAP item that ports
+    them. ``options`` is an :class:`EngineOptions`; keyword ``overrides``
+    are applied on top. ``rank=`` runs the solve relabeled and returns the
+    state in the caller's id space.
     """
     o = options if options is not None else EngineOptions()
     if overrides:
@@ -252,8 +255,24 @@ def solve(
                 f"unknown EngineOptions field(s) {bad}; valid fields: "
                 f"{[f.name for f in dataclasses.fields(o)]}"
             ) from None
-    if engine != "auto":
-        validate_options(engine, o, algo)
+    if engine == "auto":
+        # the frontier-size router, resolved before validation so the chosen
+        # engine's constraints (and only those) apply; sweep-only knobs are
+        # dropped when push wins
+        from repro_torch.engine import push as _push
+
+        try:
+            use_push = _push.estimate_frontier_fraction(algo, o.x_init) < o.push_threshold
+        except NotImplementedError:
+            use_push = False
+        if use_push:
+            engine = "push"
+            o = dataclasses.replace(
+                o, sweeps_per_call=1, frontier=None, extrapolate_every=0,
+            )
+        else:
+            engine = "async_block"
+    validate_options(engine, o, algo)
     if engine in _NOT_PORTED:
         raise EngineUnsupportedError(
             f"engine={engine!r} is not ported to repro_torch yet: {_NOT_PORTED[engine]}"
@@ -280,13 +299,14 @@ def solve(
             frontier=None if o.frontier is None
             else permute_state(np.asarray(o.frontier), rank),
         )
-    from repro_torch.engine import async_block
+    from repro_torch.engine import async_block, push
     from repro_torch.obs.trace import tspan
 
+    impl = {"async_block": async_block._solve, "push": push._solve}[engine]
     with tspan(o.trace, "solve", algo=algo.name, engine=engine,
                backend=o.backend, n=algo.n, d=algo.d) as sp:
         with _transfer_guard(o.transfer_guard, device):
-            res = async_block._solve(algo, o)
+            res = impl(algo, o)
         sp.set(rounds=res.rounds, converged=bool(res.converged))
     if rank is not None:
         x = np.asarray(res.x).reshape(algo.n, -1)[rank]

@@ -78,7 +78,7 @@ def _solve(algo: AlgoInstance, o) -> RunResult:
         be, x0, c, fixed, npad = harness.pack(algo, o.bs)
 
         def dev(a):
-            return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+            return harness.to_device(a, device)
 
         offsets = [0, *np.cumsum(be.emask.sum(axis=1)).tolist()]
         esrc = dev(be.esrc[be.emask].astype(np.int64))
@@ -130,9 +130,8 @@ def _run_async_block_kernel(
     with tspan(tracer, "pack", algo=algo.name, n=algo.n, d=algo.d, bs=bs):
         ops = pack_algorithm(algo, bs, device=device)
     # the state is its own buffer, never x0: the kernel updates it in place
-    x_start = torch.as_tensor(
-        harness.init_state(ops["x0_host"], x_init, algo.n)
-    ).to(device)
+    x_start = harness.to_device(
+        harness.init_state(ops["x0_host"], x_init, algo.n), device)
     nb = int(ops["rowptr"].shape[0]) - 1
     real_mask = torch.arange(x_start.shape[0], device=device) < algo.n
     if sweeps_per_call == 1 and frontier is None:
@@ -151,7 +150,7 @@ def _run_async_block_kernel(
         )
         return harness.finalize(algo, *out)
 
-    dirty0 = torch.as_tensor(frontier_blocks(frontier, algo.n, bs)).to(device)
+    dirty0 = harness.to_device(frontier_blocks(frontier, algo.n, bs), device)
 
     def batch_fn(x, dirty):
         return gs_multisweep(

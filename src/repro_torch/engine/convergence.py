@@ -38,6 +38,10 @@ class RunResult:
     col_converged: Optional[np.ndarray] = None  # bool[d]
     # sweep-batched kernel runs only: fraction of row-blocks updated per sweep
     active_block_fraction: Optional[np.ndarray] = None  # f32[rounds]
+    # push-engine runs only: "pushed" (vertex settles over all rounds),
+    # "edges" (scatter messages), "touched" / "touched_fraction" (distinct
+    # vertices ever active) and "rounds"
+    push_stats: Optional[dict] = None
     convergence_trace: Optional[ConvergenceTrace] = None
 
     @property

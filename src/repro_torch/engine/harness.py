@@ -1,6 +1,7 @@
 """Shared packed-run harness for the iterative engines (port of
 ``repro.engine.harness``).
 
+* :func:`check_extrapolation` — the Aitken guard `run_incremental` applies.
 * :func:`pack` — the one block-padding path (min/max-semiring pads are the
   reduce identity; ``c`` pads are 0.0 under the ``replace`` combine).
 * :func:`loop` — the per-sweep round driver with per-column convergence
@@ -43,6 +44,32 @@ def audited_sync():
         yield
     finally:
         torch.cuda.set_sync_debug_mode(mode)
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A host array as a fresh tensor on ``device``: a deliberate staging
+    copy. From pageable host memory torch synchronises the copy, so it is
+    audited like a readout."""
+    host = torch.as_tensor(np.ascontiguousarray(a))
+    if torch.device(device).type == "cpu":
+        return host.clone()
+    with audited_sync():
+        return host.to(device)
+
+
+def check_extrapolation(algo: AlgoInstance, extrapolate_every: int) -> None:
+    """Aitken extrapolation assumes a *linear* update (sum-semiring
+    "replace" combine); reject it on min/max lattice sweeps, and reject a
+    period of 1 (it diverges)."""
+    if extrapolate_every and algo.semiring.reduce != "sum":
+        raise NotImplementedError(
+            f"extrapolate_every is only valid for linear sum-semiring "
+            f"systems; {algo.name!r} uses reduce={algo.semiring.reduce!r}"
+        )
+    if extrapolate_every and not extrapolate_every >= 2:
+        raise ValueError(
+            f"extrapolate_every must be 0 (off) or >= 2, got {extrapolate_every}"
+        )
 
 
 def pack(algo: AlgoInstance, bs: int):

@@ -10,7 +10,11 @@ the very same instance and operands to the port:
 * :func:`algo_from_arrays` builds the port's :class:`AlgoInstance` from it
   (``exact_fn`` is dropped);
 * :func:`operands_from_arrays` turns packed operands into torch tensors on a
-  device, with the dtypes the kernel wrapper takes.
+  device, with the dtypes the kernel wrapper takes;
+* :func:`delta_fields` reads a ``GraphDelta`` of either package into plain
+  data, and :func:`delta_from_arrays` builds the port's
+  :class:`~repro_torch.graphs.delta.GraphDelta` from it. A prior converged
+  state crosses as its numpy ``x``.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine.algorithms import AlgoInstance, Semiring
+from repro_torch.graphs.delta import GraphDelta
 
 _ARRAY_FIELDS = ("src", "dst", "w", "x0", "c", "fixed")
 _SCALAR_FIELDS = ("name", "n", "combine", "residual", "eps", "monotone_dir")
@@ -83,3 +88,26 @@ def operands_from_arrays(packed: dict, device: str | torch.device = "cuda") -> d
         else:
             out[k] = v
     return out
+
+
+_DELTA_ARRAYS = ("add_src", "add_dst", "del_src", "del_dst", "rew_src",
+                 "rew_dst", "rew_w")
+
+
+def delta_fields(delta: Any) -> dict:
+    """The fields of a GraphDelta-like object as numpy arrays (``add_w``
+    stays None when absent) and ``n_add`` as an int."""
+    out = {f: np.asarray(getattr(delta, f)) for f in _DELTA_ARRAYS}
+    add_w = getattr(delta, "add_w", None)
+    out["add_w"] = None if add_w is None else np.asarray(add_w)
+    out["n_add"] = int(delta.n_add)
+    return out
+
+
+def delta_from_arrays(fields: dict) -> GraphDelta:
+    """Build the port's GraphDelta from :func:`delta_fields`-style data."""
+    kw = {f: np.asarray(fields[f]).copy() for f in _DELTA_ARRAYS}
+    add_w = fields.get("add_w")
+    return GraphDelta(n_add=int(fields["n_add"]),
+                      add_w=None if add_w is None else np.asarray(add_w).copy(),
+                      **kw)

@@ -38,6 +38,7 @@ from repro_torch.kernels.semirings import (
     ACC_IDENTITY,
     DELTA_METRIC,
     RES_KIND_CODE,
+    SEMIRING_CODE,
     delta_cols,
 )
 
@@ -50,7 +51,6 @@ _SUPPORTED = {
     ("max_min", "max_old"),
     ("max_times", "max_old"),
 }
-_SEMIRING_CODE = {"plus_times": 0, "min_plus": 1, "max_min": 2, "max_times": 3}
 
 
 def reset_launches() -> None:
@@ -250,7 +250,7 @@ def _launch(rowptr, tilecols, revptr, revrows, dirty, tiles, c, x0, fixed, x,
         if _overlaps(x, t):
             raise ValueError(f"gs_multisweep: the state x must not share memory with {name}")
     lib = _lib()
-    sr, rk = _SEMIRING_CODE[semiring], RES_KIND_CODE[res_kind]
+    sr, rk = SEMIRING_CODE[semiring], RES_KIND_CODE[res_kind]
     grid = ctypes.c_int(0)
     scratch_n = ctypes.c_longlong(0)
     with torch.cuda.device(dev):

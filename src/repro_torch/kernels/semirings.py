@@ -36,8 +36,31 @@ DELTA_METRIC: dict[str, str] = {
     "max_times": "changed",
 }
 
-# integer codes the CUDA library takes for the residual kinds
+# integer codes the CUDA libraries take for the semirings (the SR_* enums of
+# csrc/*.cu) and for the residual kinds
+SEMIRING_CODE: dict[str, int] = {
+    "plus_times": 0, "min_plus": 1, "max_min": 2, "max_times": 3,
+}
 RES_KIND_CODE: dict[str, int] = {"linf": 0, "l1": 1, "changed": 2}
+
+
+def pending_cols(semiring: str, p: torch.Tensor, r: torch.Tensor,
+                 keepdim: bool = False) -> torch.Tensor:
+    """Per-column pending-work metric of a push-engine ``(p, r)`` state —
+    THE definition for the port: the push round driver and its torch round.
+
+    Sum semiring: the per-column max-|r| (the linf quantity the sweep
+    engines hold to eps). Lattice semirings: the per-column count of rows
+    whose pending candidate beats ``p`` under the combine."""
+    if semiring == "plus_times":
+        return torch.amax(torch.abs(r), dim=0, keepdim=keepdim)
+    if semiring == "min_plus":
+        moved = torch.minimum(p, r) != p
+    elif semiring in ("max_min", "max_times"):
+        moved = torch.maximum(p, r) != p
+    else:
+        raise ValueError(semiring)
+    return torch.sum(moved.to(torch.float32), dim=0, keepdim=keepdim)
 
 
 def delta_cols(res_kind: str, new: torch.Tensor, old: torch.Tensor,

@@ -18,11 +18,13 @@ engines already read back, so telemetry adds no device transfer.
 ``swept_vertex_cols``   per-sweep driver: active columns × n vertices.
 ``swept_block_cells``   sweep-batched kernel: active blocks × bs rows × d
                         columns — the frontier-skipping engine's bill.
+``pushed_vertices``     push engine: vertices settled this round (its
+                        verification rounds push nothing: work 0, residual 0).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -131,4 +133,26 @@ def trace_from_block_activity(
         active_fraction=frac,
         work=frac * float(nb) * float(bs) * float(d),
         unit="swept_block_cells",
+    )
+
+
+def trace_from_push_counts(
+    residuals: Sequence[float],
+    pushed: Sequence[float],
+    *,
+    n: int,
+) -> ConvergenceTrace:
+    """Trace for the push engine's host driver.
+
+    One entry per round, *including* the empty-frontier verification
+    rounds (residual 0, work 0) so the trace length equals the round count
+    and the final entry is the residual that decided convergence.
+    """
+    res = np.asarray(list(residuals), dtype=np.float32)
+    work = np.asarray(list(pushed), dtype=np.float32)
+    return ConvergenceTrace(
+        residual=res,
+        active_fraction=work / max(n, 1),
+        work=work,
+        unit="pushed_vertices",
     )

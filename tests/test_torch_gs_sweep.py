@@ -10,6 +10,8 @@ in another order (a batched matmul per block instead of a sequential tile
 walk), so its state and deltas are held to ``atol=1e-5, rtol=1e-4``; its
 active counts and dirty bitmap are compared exactly.
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -26,7 +28,8 @@ from repro.kernels.ops import pack_algorithm as r_pack_algorithm  # noqa: E402
 from repro.kernels.ref import ref_gs_multisweep, ref_gs_sweep  # noqa: E402
 
 from repro_torch.interop import operands_from_arrays  # noqa: E402
-from repro_torch.kernels import gs_sweep as K  # noqa: E402
+
+K = importlib.import_module("repro_torch.kernels.gs_sweep")
 
 N, BS = 311, 64
 PAIRS = ["plus_times", "min_plus", "max_min", "max_times"]

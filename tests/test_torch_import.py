@@ -22,6 +22,9 @@ def test_port_modules_listed():
     assert "repro_torch" in MODULES
     assert "repro_torch.kernels.gs_sweep" in MODULES
     assert "repro_torch.engine.api" in MODULES
+    for name in ("engine.push", "engine.incremental", "graphs.delta",
+                 "kernels.push_scatter", "kernels.bsr_spmm"):
+        assert f"repro_torch.{name}" in MODULES
 
 
 def test_import_without_jax_loads_no_reference_module():
