@@ -6,7 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 each, all at once, into ``build/repro_torch/``) and holds each against its
-plain PyTorch version on small cases. Then it drives the port's paths over a
+plain PyTorch version on small cases, each kernel run twice for the same
+bits; the push kernel also on rounds built to stress its wave schedule (a
+star hub, self-loops, parallel edges, one slot, waves at the slot cap,
+vertices pushed twice). Then it drives the port's paths over a
 100,000-vertex graph:
 
 * the main path — GoGraph order, then ``solve(engine="async_block",
@@ -22,7 +25,9 @@ plain PyTorch version on small cases. Then it drives the port's paths over a
   d = 64 SSSP state, by push, by the warm sweep path and cold, all bitwise
   equal; the push and sweep paths once more under
   ``transfer_guard="disallow"``; one push round of the PPR solve, captured
-  at full size, held against the push kernel's plain version and timed;
+  at full size, and the first round of the reweight-10 absorption, held
+  against the push kernel's plain version and timed, with their waves and
+  the time of their schedule;
 * the BSR product's entry point ``repro_torch.kernels.bsr_spmm`` on the PPR
   (plus_times) and SSSP (min_plus) operands at full size, held against its
   plain version and timed beside ``torch.sparse.mm`` on the same BSR tiles.
@@ -203,11 +208,14 @@ def phase_kernels() -> None:
             mask[srcs] = True
             dirty = torch.as_tensor(frontier_blocks(mask, n, bs)).to(DEVICE)
         k_out = _run_pair(K.gs_multisweep, algo, ops, bs, sweeps, dirty)
+        again = _run_pair(K.gs_multisweep, algo, ops, bs, sweeps, dirty)
         p_out = _run_pair(K.gs_multisweep_plain, algo, ops, bs, sweeps, dirty)
         ok, err = _compare(pair, k_out, p_out)
+        repeats = all(torch.equal(u, v) for u, v in zip(k_out, again))
+        ok = ok and repeats
         n_cases += 1
         case = {"pair": pair, "n": n, "bs": bs, "d": d, "sweeps": sweeps,
-                "frontier": fr, "ok": ok, "max_abs_err": err,
+                "frontier": fr, "ok": ok, "deterministic": repeats, "max_abs_err": err,
                 "active_kernel": k_out[2][:, 0].tolist()}
         RECORD["cases"].append(case)
         if not ok:
@@ -312,11 +320,92 @@ def _push_cases() -> None:
         if not case["ok"]:
             failures.append(case)
             log(f"[kernels] MISMATCH {case}")
+    for (name, o), (pair, _), d in itertools.product(_push_adversarial(), PAIRS, (1, 20, 64)):
+        o = {**o, **_push_state(pair, o["n"], d, seed=91), "semiring": pair}
+        k_out = _push_run(P.push_scatter, o)
+        again = _push_run(P.push_scatter, o)
+        p_out = _push_run(P.push_scatter_plain, o)
+        same = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
+        determ = all(torch.equal(a, b) for a, b in zip(k_out, again))
+        nw = int(P.push_waves(o["vid"], o["seg_start"], o["seg_len"], o["nbrs"], o["ew"])[2][0])
+        case = {"kernel": "push_scatter", "case": name, "pair": pair, "d": d,
+                "ok": same and determ, "deterministic": determ, "waves": nw,
+                "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(k_out[:2], p_out[:2]))}
+        RECORD["cases"].append(case)
+        n_cases += 1
+        if not case["ok"]:
+            failures.append(case)
+            log(f"[kernels] MISMATCH {case}")
     line = {"name": "push_scatter", "cases": n_cases, "ok": not failures}
     log(f"[kernels] {json.dumps(line)} ({time.perf_counter() - t0:.1f} s)")
     if failures:
         raise AssertionError(f"push_scatter disagrees with its plain version or does "
                              f"not repeat: {len(failures)} case(s)")
+
+
+def _push_state(pair: str, n: int, d: int, seed: int) -> dict:
+    """p and r for one round: values in [0, 1] (the sum's residual in
+    [-0.1, 0.2]) with 30% of entries at the lattice identity."""
+    from repro_torch.engine.algorithms import BIG
+
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0.0, 1.0, (n, d))
+    r = rng.uniform(-0.1, 0.2, (n, d)) if pair == "plus_times" else rng.uniform(0.0, 1.0, (n, d))
+    if pair != "plus_times":
+        fill = BIG if pair == "min_plus" else -BIG
+        p[rng.random((n, d)) < 0.3] = fill
+        r[rng.random((n, d)) < 0.3] = fill
+    return {"p": torch.as_tensor(p.astype(np.float32), device=DEVICE),
+            "r": torch.as_tensor(r.astype(np.float32), device=DEVICE)}
+
+
+def _push_adversarial() -> list[tuple[str, dict]]:
+    """Slot lists that stress the wave cut: a star hub whose closed set
+    meets every other slot's (and whose 1,999 edges overflow one wave's
+    shared-memory stage); self-loops on every vertex; every edge three
+    times over; a one-slot round; 1,000 isolated vertices (waves cut at the
+    kernel's slot cap); vertices pushed twice in one round; and the hub
+    pushed five times, whose segments hold more edges than the graph (every
+    slot its own wave, walked in order)."""
+    from repro_torch.graphs import generators as gen
+    from repro_torch.graphs.graph import Graph
+
+    n = 2000
+    rng = np.random.default_rng(81)
+    base = gen.scrambled(gen.powerlaw_cluster(n, 3, p=0.5, seed=82), seed=83)
+
+    def build(src, dst, ids, buckets=1):
+        w = rng.uniform(0.1, 1.0, size=len(src)).astype(np.float32)
+        indptr, nbrs, eid = Graph(n, np.asarray(src, np.int32), np.asarray(dst, np.int32),
+                                  w).csr()
+        ids = np.asarray(ids, np.int64)
+        cap = -(-len(ids) // buckets)
+        slots = np.full(buckets * cap, -1, np.int64)
+        slots[: len(ids)] = ids
+        safe = np.maximum(slots, 0)
+        i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=DEVICE)  # noqa: E731
+        return {"n": n, "vid": i32(slots), "buckets": buckets, "cap": cap,
+                "seg_start": i32(np.where(slots >= 0, indptr[safe], 0)),
+                "seg_len": i32(np.where(slots >= 0, indptr[safe + 1] - indptr[safe], 0)),
+                "nbrs": i32(nbrs), "ew": torch.as_tensor(w[eid], device=DEVICE)}
+
+    some = rng.choice(np.arange(1, n), size=600, replace=False)
+    star_ids = np.insert(some, 300, 0)
+    star = build(np.concatenate([base.src, np.zeros(n - 1, np.int32)]),
+                 np.concatenate([base.dst, np.arange(1, n)]), star_ids, buckets=4)
+    loops = build(np.concatenate([base.src, np.arange(n)]),
+                  np.concatenate([base.dst, np.arange(n)]), some)
+    para = build(np.tile(base.src, 3), np.tile(base.dst, 3), some)
+    one = build(base.src, base.dst, [int(some[0])])
+    keep = base.src < 1000  # vertices 1000.. have no out-edges
+    isolated = build(base.src[keep], base.dst[keep], np.arange(1000, 2000))
+    twice = build(base.src, base.dst, np.concatenate([some[:50], some[:50]]))
+    hub5 = build(np.concatenate([base.src, np.zeros(n - 1, np.int32)]),
+                 np.concatenate([base.dst, np.arange(1, n)]),
+                 np.concatenate([[0] * 5, some[:100]]))
+    return [("star_hub", star), ("self_loops", loops), ("parallel_edges", para),
+            ("one_slot", one), ("isolated_capped", isolated), ("pushed_twice", twice),
+            ("hub_pushed_5x", hub5)]
 
 
 def _spmm_close(pair: str, got, want) -> bool:
@@ -830,12 +919,28 @@ def phase_push(ctx: dict) -> list[dict]:
     ins = random_delta(gw, frac_add=1000 / gw.m, w_lo=0.1, w_hi=1.0, seed=8)
     assert len(ins.add_src) == 1000
     prior = ctx["sssp_x"]
+    delta_round: dict = {}
+
+    def capture_first(into):
+        def run(vid, seg_start, seg_len, nbrs, ew, p, r, **kw):
+            if not into:
+                into.update(vid=vid.clone(), seg_start=seg_start.clone(),
+                            seg_len=seg_len.clone(), nbrs=nbrs, ew=ew,
+                            p=p.clone(), r=r.clone(), **kw)
+            return kernel(vid, seg_start, seg_len, nbrs, ew, p, r, **kw)
+        return run
+
     for label, delta in (("delta_reweight10", rew), ("delta_insert1000", ins)):
         new = A.remake(sssp, delta.apply(gw))
         trs = [Tracer() for _ in range(3)]
-        rp, wp, cp = _counted(lambda: run_incremental(
-            new, sssp, prior, engine="push", backend="kernel", device=DEVICE,
-            trace=trs[0]))
+        if label == "delta_reweight10":
+            P.push_scatter = capture_first(delta_round)
+        try:
+            rp, wp, cp = _counted(lambda: run_incremental(
+                new, sssp, prior, engine="push", backend="kernel", device=DEVICE,
+                trace=trs[0]))
+        finally:
+            P.push_scatter = kernel
         _push_row(f"{label}_push", rp, wp, cp, trs[0])
         rw, ww, cw = _counted(lambda: run_incremental(
             new, sssp, prior, engine="async_block", backend="kernel", bs=BS,
@@ -846,14 +951,18 @@ def phase_push(ctx: dict) -> list[dict]:
             sweeps_per_call=SWEEPS_PER_CALL, device=DEVICE, transfer_guard="disallow",
             trace=trs[2]))
         _push_row(f"{label}_cold_guarded", rc, wc, cc, trs[2])
+        if label == "delta_reweight10":
+            cp_reweight = cp["push_scatter"]
         same = (rp.x.tobytes() == rc.x.tobytes() and rw.x.tobytes() == rc.x.tobytes())
         if not same or cp["push_scatter"] <= 0 or cw["gs_sweep"] <= 0:
             raise AssertionError(f"{label}: push, warm block and cold differ "
                                  f"(bitwise {same}) or a kernel did not launch")
     del results, guarded
 
-    # c. one captured push round at full size against the plain version
+    # c. one captured push round at full size, and the reweight-10 delta's
+    # first round, against the plain version
     entries = [_push_entry(capture, push_launches)]
+    _push_entry(delta_round, cp_reweight, tag="time_push_scatter_delta_reweight10")
     # d. the BSR product's entry point at full size
     ppr_rel = ppr.relabel(rank)
     sssp_rel = sssp.relabel(rank)
@@ -864,12 +973,13 @@ def phase_push(ctx: dict) -> list[dict]:
     return entries
 
 
-def _push_entry(capture: dict, launches: int) -> dict:
+def _push_entry(capture: dict, launches: int, tag: str = "time_push_scatter") -> dict:
     """The captured round: kernel against plain version (p, r, pushed and
-    edges equal), the kernel twice bit for bit, times and bound."""
+    edges equal), the kernel twice bit for bit, times and bound, and the
+    round's waves and the time of its schedule (`push_waves`: the torch ops
+    and the wave cut, included in the round's time)."""
     if not capture:
-        raise AssertionError(f"no push round of the PPR batch had "
-                             f">= {PUSH_CAPTURE_SLOTS} slots")
+        raise AssertionError(f"{tag}: no push round was captured")
     P = kmod("push_scatter")
     o = capture
     p, r = o["p"].clone(), o["r"].clone()
@@ -895,6 +1005,9 @@ def _push_entry(capture: dict, launches: int) -> dict:
     determ = all(torch.equal(a, b) for a, b in zip(k_out, again))
     err = max(float((a - b).abs().max()) for a, b in zip(k_out[:2], p_out[:2]))
     ms = _time_cuda(lambda: call(P.push_scatter), reps=5, reset=reset)
+    sched_args = (o["vid"], o["seg_start"], o["seg_len"], o["nbrs"], o["ew"])
+    waves = int(P.push_waves(*sched_args)[2][0])
+    schedule_ms = _time_cuda(lambda: P.push_waves(*sched_args), reps=5)
     plain_ms = _time_cuda(lambda: call(P.push_scatter_plain), reps=1, reset=reset)
     n, d = p.shape
     slots = int((o["vid"] >= 0).sum())
@@ -912,14 +1025,18 @@ def _push_entry(capture: dict, launches: int) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
     }
-    RECORD["phases"]["time_push_scatter"] = {
+    RECORD["phases"][tag] = {
         **entry, "slots": slots, "buckets": o["buckets"], "cap": o["cap"], "edges": edges,
         "n": n, "d": d, "bytes": nbytes, "ops": nops, "agrees_with_plain": same,
         "deterministic": determ, "plain_first_call_s": plain_s,
+        "waves": waves, "mean_slots_per_wave": slots / max(1, waves),
+        "schedule_ms": schedule_ms,
     }
-    log(f"[time] {json.dumps(RECORD['phases']['time_push_scatter'])}")
+    log(f"[push] {tag}: {waves} waves per round, {slots / max(1, waves):.2f} slots "
+        f"per wave, schedule {schedule_ms:.4f} ms of the round's {ms:.4f} ms")
+    log(f"[time] {json.dumps(RECORD['phases'][tag])}")
     if not (same and determ):
-        raise AssertionError(f"push_scatter at full size: equal to its plain version "
+        raise AssertionError(f"{tag}: equal to its plain version "
                              f"{same}, deterministic {determ}, max abs err {err}")
     return entry
 

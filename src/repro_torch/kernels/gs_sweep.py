@@ -16,12 +16,18 @@ block counts and a sticky all-columns-below-eps early-out (the semantics of
 What bounds it on the card: a full sweep reads every tile once
 (``nnz * bs * bs * 4`` bytes) plus one gathered ``(bs, d)`` source block per
 tile, and does ``2 * nnz * bs * bs * d`` f32 operations — at d = 64 the
-operations dominate. The kernel is one persistent cooperative launch per
-batch of sweeps: all CTAs split the current block's tiles, fold their
-partials in a fixed order after a grid barrier, and move on to the next
-block after a second one. Block order, the diagonal-tile read of the old
-state and run-to-run determinism come from that structure; its cost is two
-grid barriers per updated block (measured in PERF.md).
+operations dominate — and block i cannot finish before the blocks j < i it
+reads. The kernel is one persistent cooperative launch per batch of sweeps
+that keeps many blocks in flight: CTAs claim (sweep, part of a block) units
+in ascending order (a block's tiles cut into parts of at most 128, listed by
+:func:`_units`), each block waits only for the in-sweep sources it reads
+(per-block publication words), the state is ping-ponged between ``x`` and a
+scratch buffer so no block overwrites rows an earlier block has yet to
+read, and one wait per sweep closes it. A block reduces its tiles in a
+fixed order (:func:`sweep_tile_order`), so plus_times is repeatable bit for
+bit. The frontier is read off the tiles (a block is dirty iff a block it
+reads changed since its turn), so ``revptr``/``revrows`` must be the
+reverse of ``(rowptr, tilecols)``, as ``ops.pack_algorithm`` builds them.
 
 :func:`gs_multisweep` launches the kernel for CUDA tensors and runs
 :func:`gs_multisweep_plain` for CPU tensors; there is no fallback from one
@@ -80,6 +86,20 @@ def or_dirty_blocks(dirty, vertex_mask, n: int, bs: int):
             dirty, torch.as_tensor(add, device=dirty.device)
         ).to(torch.int32)
     return np.maximum(np.asarray(dirty, np.int32), add).astype(np.int32)
+
+
+def sweep_tile_order(rowptr, tilecols) -> np.ndarray:
+    """The order in which the kernel reduces each block's tiles: first the
+    tiles reading blocks ``j >= i`` (the last sweep's rows), then those
+    reading ``j < i`` (this sweep's), each ascending by column. Returns the
+    permutation of tile indices; ``rowptr`` is unchanged by it. The kernel
+    indexes this order without moving tiles."""
+    rowptr = np.asarray(torch.as_tensor(rowptr).cpu(), np.int64)
+    cols = np.asarray(torch.as_tensor(tilecols).cpu(), np.int64)
+    nb = len(rowptr) - 1
+    rows = np.repeat(np.arange(nb), np.diff(rowptr))
+    t = np.arange(int(rowptr[-1]))
+    return np.lexsort((cols[t], cols[t] < rows, rows)).astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -197,12 +217,14 @@ def _lib():
         vp = ctypes.c_void_p
         lib.gs_multisweep_plan.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong),
+            ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(ctypes.c_int),
         ]
         lib.gs_multisweep_plan.restype = ctypes.c_int
         lib.gs_multisweep_launch.argtypes = (
-            [ctypes.c_int, ctypes.c_int] + [vp] * 14
-            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, vp]
+            [ctypes.c_int, ctypes.c_int] + [vp] * 16
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, vp]
         )
         lib.gs_multisweep_launch.restype = ctypes.c_int
         lib._gs_typed = True
@@ -226,6 +248,23 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
     a0, b0 = a.data_ptr(), b.data_ptr()
     return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
+def _units(rowptr, nnz: int, tmax: int):
+    """The units of a sweep, in the order the kernel claims them: block by
+    block, each block split into ``ceil(tiles / tmax)`` parts of its fixed
+    tile order (one part when ``tmax`` is 0). Returns ``(unit_block,
+    unit_part, nunits[1])`` as int32 tensors on the device, sized for the
+    most units ``nnz`` tiles can make, with no host synchronisation."""
+    nb = rowptr.shape[0] - 1
+    dev = rowptr.device
+    nt = (rowptr[1:] - rowptr[:-1]).to(torch.int64)
+    parts = torch.clamp((nt + tmax - 1) // tmax, min=1) if tmax else torch.ones_like(nt)
+    cum = torch.cumsum(parts, 0)
+    idx = torch.arange(nb + (nnz // tmax if tmax else 0), device=dev)
+    block = torch.searchsorted(cum, idx, right=True).clamp_(max=nb - 1)
+    part = idx - (cum - parts)[block]
+    return block.to(torch.int32), part.to(torch.int32), cum[-1:].to(torch.int32)
 
 
 def _launch(rowptr, tilecols, revptr, revrows, dirty, tiles, c, x0, fixed, x,
@@ -252,24 +291,31 @@ def _launch(rowptr, tilecols, revptr, revrows, dirty, tiles, c, x0, fixed, x,
     lib = _lib()
     sr, rk = SEMIRING_CODE[semiring], RES_KIND_CODE[res_kind]
     grid = ctypes.c_int(0)
+    ctrl_n = ctypes.c_longlong(0)
     scratch_n = ctypes.c_longlong(0)
+    tmax = ctypes.c_int(0)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, tiles, c, x0, fixed))
     with torch.cuda.device(dev):
-        err = lib.gs_multisweep_plan(sr, rk, bs, d, nb, ctypes.byref(grid),
-                                     ctypes.byref(scratch_n))
+        err = lib.gs_multisweep_plan(sr, rk, bs, d, nb, nnz, int(aligned), ctypes.byref(grid),
+                                     ctypes.byref(ctrl_n), ctypes.byref(scratch_n),
+                                     ctypes.byref(tmax))
         if err:
             raise RuntimeError(f"gs_multisweep: planning failed with CUDA error {err} "
                                f"(bs={bs}, d={d}, nb={nb})")
+        unit_block, unit_part, nunits = _units(rowptr, nnz, tmax.value)
         deltas = torch.empty((sweeps, d), dtype=f32, device=dev)
         active = torch.empty((sweeps, 1), dtype=f32, device=dev)
         dirty_out = torch.empty((nb,), dtype=i32, device=dev)
+        ctrl = torch.zeros((ctrl_n.value,), dtype=i32, device=dev)
         scratch = torch.empty((scratch_n.value,), dtype=f32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gs_multisweep_launch(
-            sr, rk, rowptr.data_ptr(), tilecols.data_ptr(), revptr.data_ptr(),
-            revrows.data_ptr(), dirty.data_ptr(), tiles.data_ptr(), c.data_ptr(),
-            x0.data_ptr(), fixed.data_ptr(), x.data_ptr(), deltas.data_ptr(),
-            active.data_ptr(), dirty_out.data_ptr(), scratch.data_ptr(),
-            nb, bs, d, sweeps, float(eps), grid.value, stream,
+            sr, rk, rowptr.data_ptr(), tilecols.data_ptr(), dirty.data_ptr(),
+            tiles.data_ptr(), c.data_ptr(), x0.data_ptr(), fixed.data_ptr(),
+            x.data_ptr(), deltas.data_ptr(), active.data_ptr(), dirty_out.data_ptr(),
+            ctrl.data_ptr(), scratch.data_ptr(), unit_block.data_ptr(),
+            unit_part.data_ptr(), nunits.data_ptr(), nb, bs, d, sweeps, float(eps),
+            tmax.value, grid.value, stream,
         )
     if err:
         raise RuntimeError(f"gs_multisweep: kernel launch failed with CUDA error {err}")

@@ -180,3 +180,76 @@ def test_or_dirty_blocks_matches_reference():
     got_t = K.or_dirty_blocks(torch.from_numpy(dirty), mask, N, BS)
     assert got_t.dtype == torch.int32
     np.testing.assert_array_equal(got_t.numpy(), want)
+
+
+def _run_plain(host, dirty, kw, order=None):
+    h = dict(host)
+    if order is not None:  # the kernel's per-block tile order
+        h["tiles"], h["tilecols"] = host["tiles"][order], host["tilecols"][order]
+    ops = operands_from_arrays({**h, "dirty": dirty, "x": host["x0"]}, device="cpu")
+    return K.gs_multisweep_plain(
+        ops["rowptr"], ops["tilecols"], ops["revptr"], ops["revrows"], ops["dirty"],
+        ops["tiles"], ops["c"], ops["x0"], ops["fixed"], ops["x"], **kw)
+
+
+@pytest.mark.parametrize("frontier", ["all", "seeded"])
+@pytest.mark.parametrize("sweeps", [1, 4, 16])
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("pair", PAIRS)
+def test_kernel_tile_order_matches_block_order(pair, d, sweeps, frontier):
+    """The plain version over the tiles in the kernel's order (each block's
+    tiles reading j >= i first, then j < i) equals it over the packed order:
+    exactly for the lattice pairs, to 1e-6 relative for plus_times (only
+    the summation order moves; the deltas, differences of states, to 1e-6 of
+    the largest state); at 16 sweeps also the reference kernel."""
+    algo, srcs, ref, host = _operands(pair, d)
+    nb = host["rowptr"].shape[0] - 1
+    order = K.sweep_tile_order(host["rowptr"], host["tilecols"])
+    rows = np.repeat(np.arange(nb), np.diff(host["rowptr"]))
+    assert sorted(order.tolist()) == list(range(len(order)))
+    assert np.array_equal(rows[order], rows)  # tiles stay in their block
+    cols = host["tilecols"][order]
+    for i in range(nb):
+        c = cols[host["rowptr"][i]:host["rowptr"][i + 1]]
+        k = int((c >= i).sum())
+        assert (c[:k] >= i).all() and (np.diff(c[:k]) > 0).all()
+        assert (c[k:] < i).all() and (np.diff(c[k:]) > 0).all()
+    dirty = _dirty(frontier, srcs, nb)
+    kw = dict(semiring=ref["semiring"], combine=ref["combine"],
+              res_kind=algo.residual, bs=BS, sweeps=sweeps, eps=float(algo.eps))
+    got = _run_plain(host, dirty, kw, order)
+    want = _run_plain(host, dirty, kw)
+    scale = float(np.abs(want[0].numpy()).max())
+    for name, a, b in zip(("x", "deltas", "active", "dirty"), got, want):
+        if pair == "plus_times" and name in ("x", "deltas"):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                       atol=0 if name == "x" else 1e-6 * scale)
+        else:
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    if sweeps == 16:
+        pallas = gs_multisweep_pallas(
+            *(jnp.asarray(host[k]) for k in ("rowptr", "tilecols", "revptr", "revrows")),
+            jnp.asarray(dirty),
+            *(jnp.asarray(host[k]) for k in ("tiles", "c", "x0", "fixed", "x0")),
+            interpret=True, **kw)
+        _check(pair, got, pallas)
+
+
+@pytest.mark.parametrize("tmax", [0, 4, 128])
+def test_units_cut_each_block_into_parts(tmax):
+    """The kernel's units of a sweep: every block in order, cut into
+    ceil(tiles / tmax) parts (one when tmax is 0), in a list sized for the
+    most units the tiles can make."""
+    _, _, _, host = _operands("plus_times", 3)
+    rowptr = torch.as_tensor(host["rowptr"])
+    nnz = int(rowptr[-1])
+    block, part, nunits = K._units(rowptr, nnz, tmax)
+    nt = np.diff(host["rowptr"])
+    parts = np.maximum(1, -(-nt // tmax)) if tmax else np.ones_like(nt)
+    want_b = np.repeat(np.arange(len(nt)), parts)
+    want_p = np.concatenate([np.arange(k) for k in parts])
+    n = int(nunits[0])
+    assert n == parts.sum() <= len(block) == len(nt) + (nnz // tmax if tmax else 0)
+    np.testing.assert_array_equal(block[:n].numpy(), want_b)
+    np.testing.assert_array_equal(part[:n].numpy(), want_p)
+    assert block.dtype == part.dtype == nunits.dtype == torch.int32
