@@ -9,8 +9,11 @@ each, all at once, into ``build/repro_torch/``) and holds each against its
 plain PyTorch version on small cases, each kernel run twice for the same
 bits; the push kernel also on rounds built to stress its wave schedule (a
 star hub, self-loops, parallel edges, one slot, waves at the slot cap,
-vertices pushed twice). Then it drives the port's paths over a
-100,000-vertex graph:
+vertices pushed twice), the BSR product's tensor-core path also at bs and
+d of 64 and 128 with every column chunk giving the same bits, an empty
+row-block, a row of more tiles than its ring has stages and states spread
+over 1e-4 .. 1e4. Then it drives the port's paths over a 100,000-vertex
+graph:
 
 * the main path — GoGraph order, then ``solve(engine="async_block",
   backend="kernel")`` on a batch of 64 personalized-PageRank queries and 64
@@ -30,7 +33,13 @@ vertices pushed twice). Then it drives the port's paths over a
   the time of their schedule;
 * the BSR product's entry point ``repro_torch.kernels.bsr_spmm`` on the PPR
   (plus_times) and SSSP (min_plus) operands at full size, held against its
-  plain version and timed beside ``torch.sparse.mm`` on the same BSR tiles.
+  plain version and timed beside ``torch.sparse.mm`` on the same BSR tiles;
+* the paper's experiments: Fig. 8 (the sync engine, torch ops, default
+  order, against the sweep kernel under the default order and GoGraph, on
+  global PageRank and the d = 64 PPR and SSSP batches; the sync states held
+  to the kernel's), Fig. 5/6 (global PageRank through the kernel under each
+  of the eight orders of ``core.baselines.all_reorderers``) and the
+  priority-scheduled block engine on global PageRank and the SSSP batch.
 
 Any failure raises and exits non-zero. The second-to-last line of standard
 output is the kernels' JSON record, the last line the device JSON. Detailed
@@ -64,6 +73,7 @@ import repro_torch  # noqa: E402,F401  (fails here when run outside a checkout)
 HBM_BYTES_PER_S = 3.35e12
 F32_FMA_OPS_PER_S = 67e12
 F32_NON_FMA_OPS_PER_S = F32_FMA_OPS_PER_S / 2
+TF32_OPS_PER_S = 495e12  # tensor cores, dense
 
 # where every tensor of the run lives (the card; a rehearsal on the CPU may
 # point it elsewhere)
@@ -458,11 +468,69 @@ def _spmm_cases() -> None:
         if not ok:
             failures.append(case)
             log(f"[kernels] MISMATCH {case}")
+    n_cases += _spmm_tc_cases(failures)
     line = {"name": "bsr_spmm", "cases": n_cases, "ok": not failures}
     log(f"[kernels] {json.dumps(line)} ({time.perf_counter() - t0:.1f} s)")
     if failures:
         raise AssertionError(f"bsr_spmm disagrees with its plain version: "
                              f"{len(failures)} case(s)")
+
+
+def _spmm_tc_cases(failures: list) -> int:
+    """The tensor-core plus_times path (bs and d multiples of 64) against
+    the plain version: bs in {64, 128}, d in {64, 128}, every column chunk
+    dj in {64, d} giving the same bits, on a graph of 4,000 vertices whose
+    row-block 0 holds a tile from every row-block (more tiles than the
+    ring has stages, and more than one warp's worth of tile columns) and
+    whose row-block 2 holds none, with states spread over 1e-4 .. 1e4 (where
+    the 3xTF32 split is weakest) and, once, uniform in [0, 5]."""
+    from repro_torch.graphs import generators as gen
+    from repro_torch.graphs.blocked import pack_bsr_flat
+    from repro_torch.graphs.graph import Graph
+
+    B = kmod("bsr_spmm")
+    n = 4000
+    base = gen.scrambled(gen.powerlaw_cluster(n, 4, p=0.5, seed=54), seed=55)
+    rng = np.random.default_rng(56)
+    n_cases = 0
+    for bs, d, spread in [(64, 64, True), (64, 128, True), (128, 64, True),
+                          (128, 128, True), (64, 64, False)]:
+        # one edge into vertex 3 from every row-block; row-block 2 emptied
+        hub_src = np.arange(0, n, bs, dtype=np.int32) + 1
+        src = np.concatenate([base.src, hub_src])
+        dst = np.concatenate([base.dst, np.full(len(hub_src), 3, np.int32)])
+        keep = (dst // bs) != 2
+        pairs = np.unique(np.stack([src[keep], dst[keep]]), axis=1)
+        w = rng.uniform(0.1, 1.0, pairs.shape[1]).astype(np.float32)
+        g = Graph(n, pairs[0].astype(np.int32), pairs[1].astype(np.int32), w)
+        bsr = pack_bsr_flat(g, bs, fill=0.0, device=DEVICE)
+        npad = bsr.nb * bs
+        x = (10.0 ** rng.uniform(-4.0, 4.0, (npad, d)) if spread
+             else rng.uniform(0.0, 5.0, (npad, d)))
+        x = torch.as_tensor(x.astype(np.float32), device=DEVICE)
+        args = [torch.as_tensor(a, device=DEVICE) for a in (bsr.rowptr, bsr.tilerows, bsr.tilecols)]
+        args += [bsr.tiles, x]
+        outs = {dj: B.bsr_spmm(*args, semiring="plus_times", bs=bs, dj=dj)
+                for dj in sorted({64, d})}
+        again = B.bsr_spmm(*args, semiring="plus_times", bs=bs, dj=64)
+        yp = B.bsr_spmm_plain(*args, semiring="plus_times", bs=bs, dj=64)
+        torch.cuda.synchronize()
+        yk = outs[64]
+        row_tiles = np.diff(bsr.rowptr)
+        ok = (_spmm_close("plus_times", yk, yp) and torch.equal(yk, again)
+              and all(torch.equal(yk, o) for o in outs.values())
+              and bool((yk[2 * bs:3 * bs] == 0).all()))
+        case = {"kernel": "bsr_spmm", "path": "tensor_core", "pair": "plus_times",
+                "bs": bs, "d": d, "dj": sorted(outs), "spread": spread,
+                "max_row_tiles": int(row_tiles.max()), "empty_rows": int((row_tiles == 0).sum()),
+                "ok": ok, "max_abs_err": float((yk - yp).abs().max()),
+                "max_rel_err": float(((yk - yp).abs() / yp.abs().clamp_min(1e-30)).max())}
+        RECORD["cases"].append(case)
+        log(f"[kernels] {json.dumps(case)}")
+        n_cases += 1
+        if not ok:
+            failures.append(case)
+    return n_cases
 
 
 # ---------------------------------------------------------------------------
@@ -733,6 +801,7 @@ def phase_main() -> tuple[list[dict], dict]:
     if not paper["pagerank_rounds_gograph"] < paper["pagerank_rounds_identity"]:
         raise AssertionError(f"GoGraph did not cut PageRank's rounds: {paper}")
     ppr_x, sssp_x = k_ppr["res"].x, k_sssp["res"].x  # the push path's references
+    pr_x = pr_go["res"].x
     del k_ppr, k_id, k_sssp, s_id, pr_go, pr_id
 
     # the kernel's time at the main path's shape, beside plain and bound
@@ -742,8 +811,8 @@ def phase_main() -> tuple[list[dict], dict]:
         e["launches"] = launches[sem]
         entries.append(e)
     _fixed_cost(g.n, seeds)
-    ctx = {"g": g, "gw": gw, "rank": rank, "ppr": ppr, "sssp": sssp,
-           "ppr_x": ppr_x, "sssp_x": sssp_x}
+    ctx = {"g": g, "gw": gw, "rank": rank, "ppr": ppr, "sssp": sssp, "pr": pr,
+           "ppr_x": ppr_x, "sssp_x": sssp_x, "pr_x": pr_x, "gograph_s": t_order}
     return entries, ctx
 
 
@@ -1080,9 +1149,14 @@ def _spmm_entry(algo, x_rel: np.ndarray) -> dict:
     nnz = int(ops["tiles"].shape[0])
     nbytes = nnz * BS * BS * 4 + 2 * npad * d * 4 + (nb + 1 + nnz) * 4
     nops = 2 * nnz * BS * BS * d
-    rate = F32_FMA_OPS_PER_S if sem == "plus_times" else F32_NON_FMA_OPS_PER_S
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * nops / rate
+    # plus_times runs in 3xTF32 on the tensor cores: three products each;
+    # the lattice pairs run two non-FMA instructions per element
+    if sem == "plus_times":
+        run_ops, rate = 3 * nops, TF32_OPS_PER_S
+    else:
+        run_ops, rate = nops, F32_NON_FMA_OPS_PER_S
+    t_ops = 1e3 * run_ops / rate
     entry = {
         "name": f"bsr_spmm[{sem}]", "route": "cuda",
         "source": "src/repro_torch/csrc/bsr_spmm.cu",
@@ -1094,7 +1168,10 @@ def _spmm_entry(algo, x_rel: np.ndarray) -> dict:
     }
     tag = f"time_bsr_spmm_{sem}"
     RECORD["phases"][tag] = {**entry, "nnz": nnz, "nb": nb, "d": d, "bytes": nbytes,
-                             "ops": nops, "agrees_with_plain": agree,
+                             "ops": nops, "ops_run": run_ops, "ops_per_s": rate,
+                             "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+                             "bound_ffma_ms": 1e3 * nops / F32_FMA_OPS_PER_S,
+                             "agrees_with_plain": agree,
                              "deterministic": determ, "library_max_abs_err": library_err}
     log(f"[time] {json.dumps(RECORD['phases'][tag])}")
     if not (agree and determ and launches == 1):
@@ -1104,6 +1181,160 @@ def _spmm_entry(algo, x_rel: np.ndarray) -> dict:
     del ops, x, y, yk, again, yp
     torch.cuda.empty_cache()
     return entry
+
+
+# ---------------------------------------------------------------------------
+# the paper's experiments on the card: Fig. 8 (sync against async), Fig. 5/6
+# (the competitor orders) and the priority engine
+# ---------------------------------------------------------------------------
+
+# the priority engine's block size and selected fraction: its own default
+# fraction, on blocks of 256 because each block update is a dozen torch
+# launches and the run is bound by their number; the one run at
+# benchmarks/priority_sched.py's settings (64, 0.125) shows the stop rule
+PRIORITY_BS = 256
+PRIORITY_FRAC = 0.25
+
+
+def _paper_row(tag: str, label: str, run, **extra):
+    """Run ``run()`` with the launch counts at 0, print and record its row
+    (rounds, wall time, ms per round, launches) and require convergence."""
+    res, wall, counts = _counted(run)
+    rounds = float(res.rounds)
+    row = {"label": label, "rounds": rounds, "converged": bool(res.converged),
+           "wall_s": wall, "ms_per_round": 1e3 * wall / max(rounds, 1.0),
+           "launches": counts, **extra}
+    log(f"[{tag}] {json.dumps(row)}")
+    RECORD["phases"][label] = row
+    if not res.converged:
+        raise AssertionError(f"{label}: did not converge ({rounds} rounds)")
+    return res, row
+
+
+def _agree(name: str, got, want) -> dict:
+    """Lattice states equal; PageRank-family states within the reference's
+    sync-against-async tolerance (atol 1e-4, rtol 1e-3)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if name.startswith("sssp"):
+        ok = bool(np.array_equal(got, want))
+    else:
+        ok = bool(np.allclose(got, want, atol=1e-4, rtol=1e-3))
+    return {"ok": ok, "max_abs_diff": float(np.abs(got - want).max())}
+
+
+def phase_fig8(ctx: dict) -> None:
+    """Paper Fig. 8 on the card: Sync + Default (the sync engine on torch
+    ops) against Async + Default and Async + GoGraph (the sweep kernel; the
+    main path's runs of the same instances) for global PageRank, the d = 64
+    PPR batch and the d = 64 SSSP batch."""
+    from repro_torch import solve
+
+    cases = (("pagerank", ctx["pr"], ctx["pr_x"]), ("ppr64", ctx["ppr"], ctx["ppr_x"]),
+             ("sssp64", ctx["sssp"], ctx["sssp_x"]))
+    summary = {}
+    for name, algo, x_async in cases:
+        res, row = _paper_row("fig8", f"fig8_{name}_sync_default", lambda: solve(
+            algo, engine="sync", max_iters=5000, device=DEVICE))
+        if any(row["launches"].values()):
+            raise AssertionError(f"the sync engine launched a kernel: {row['launches']}")
+        agree = _agree(name, res.x, x_async)
+        key = "ppr" if name == "ppr64" else "sssp" if name == "sssp64" else "pagerank"
+        a_def = RECORD["phases"][f"{key}_identity_kernel"]
+        a_go = RECORD["phases"][f"{key}_gograph_kernel"]
+        summary[name] = {
+            "sync_default": {"rounds": row["rounds"], "wall_s": row["wall_s"],
+                             "ms_per_round": row["ms_per_round"]},
+            "async_default": {k: a_def[k] for k in ("rounds", "wall_s", "ms_per_sweep")},
+            "async_gograph": {k: a_go[k] for k in ("rounds", "wall_s", "ms_per_sweep")},
+            "sync_vs_async_gograph": agree,
+        }
+        del res
+        if not agree["ok"]:
+            raise AssertionError(f"fig8 {name}: the sync state disagrees with the "
+                                 f"kernel's: {agree}")
+    log(f"[fig8] {json.dumps(summary)}")
+    RECORD["phases"]["fig8"] = summary
+
+
+def phase_orders(ctx: dict) -> None:
+    """Paper Fig. 5/6 on the card: global PageRank through the sweep kernel
+    under each order of ``all_reorderers`` (one order packed at a time,
+    freed after): seconds to order, M/|E|, tiles, rounds, ms per sweep."""
+    from repro_torch import solve
+    from repro_torch.core.baselines import all_reorderers
+    from repro_torch.core.metric import positive_edge_fraction
+
+    g, pr = ctx["g"], ctx["pr"]
+    rows = {}
+    for name, order_fn in all_reorderers(seed=0).items():
+        if name == "GoGraph":  # ordered once already by the main path
+            rank, order_s = ctx["rank"], ctx["gograph_s"]
+        else:
+            t0 = time.perf_counter()
+            rank = order_fn(g)
+            order_s = time.perf_counter() - t0
+        extra = {"order": name, "order_s": order_s,
+                 "positive_edge_fraction": positive_edge_fraction(g, rank),
+                 "tiles": _tile_count(g, rank, BS)}
+        res, row = _paper_row("fig5_6", f"fig5_6_pagerank_{name}", lambda: solve(
+            pr, engine="async_block", backend="kernel", bs=BS, rank=rank,
+            sweeps_per_call=SWEEPS_PER_CALL, max_iters=2000, device=DEVICE), **extra)
+        agree = _agree("pagerank", res.x, ctx["pr_x"])
+        row["vs_gograph_kernel"] = agree
+        rows[name] = {k: row[k] for k in ("rounds", "ms_per_round", "wall_s", "order_s",
+                                          "positive_edge_fraction", "tiles")}
+        del res
+        torch.cuda.empty_cache()
+        if row["launches"]["gs_sweep"] <= 0 or not agree["ok"]:
+            raise AssertionError(f"fig5_6 {name}: kernel launches {row['launches']}, "
+                                 f"state against GoGraph's {agree}")
+    log(f"[fig5_6] {json.dumps(rows)}")
+    RECORD["phases"]["fig5_6"] = rows
+
+
+def phase_priority(ctx: dict) -> None:
+    """The priority-scheduled block engine on global PageRank and the d = 64
+    SSSP batch, under the default order and under GoGraph: equivalent
+    sweeps and wall time. PageRank's state lies within the reference's
+    priority tolerance (atol 2e-4, rtol 1e-3) of the kernel's. The engine
+    stops once a round's total L1 motion and every pending priority are
+    <= eps, and SSSP's eps (0.5, a count of changed entries for the other
+    engines) lets it stop short of the fixpoint, as the reference's does:
+    that run (at benchmarks/priority_sched.py's bs 64, select_frac 0.125)
+    is printed with its distance to the kernel's state, and the SSSP runs
+    held to the kernel's state bit for bit use eps = 0."""
+    import dataclasses
+
+    from repro_torch.engine.priority import run_priority_block
+
+    rank = ctx["rank"]
+    sssp_exact = dataclasses.replace(ctx["sssp"], eps=0.0)
+    std = (PRIORITY_BS, PRIORITY_FRAC)
+    runs = [("pagerank", "default", ctx["pr"], ctx["pr_x"], std),
+            ("pagerank", "gograph", ctx["pr"], ctx["pr_x"], std),
+            ("sssp64_eps0.5", "default", ctx["sssp"], ctx["sssp_x"], (64, 0.125)),
+            ("sssp64", "default", sssp_exact, ctx["sssp_x"], std),
+            ("sssp64", "gograph", sssp_exact, ctx["sssp_x"], std)]
+    for name, order, algo, x_ref, (bs, frac) in runs:
+        inst = algo if order == "default" else algo.relabel(rank)
+        res, row = _paper_row("priority", f"priority_{name}_{order}",
+                              lambda: run_priority_block(
+                                  inst, bs=bs, select_frac=frac, device=DEVICE),
+                              bs=bs, select_frac=frac, eps=float(algo.eps))
+        x = res.x if order == "default" else np.asarray(res.x)[rank]
+        if name == "sssp64":
+            ok = bool(np.array_equal(x, x_ref))
+        elif name == "pagerank":
+            ok = bool(np.allclose(x, x_ref, atol=2e-4, rtol=1e-3))
+        else:  # printed, not held: the reference stops at the same state
+            ok = True
+        row["vs_kernel"] = {"ok": ok, "max_abs_diff": float(np.abs(x - x_ref).max())}
+        log(f"[priority] {row['label']}: {row['rounds']:.3f} equivalent sweeps, "
+            f"{row['wall_s']:.3f} s, against the kernel {json.dumps(row['vs_kernel'])}")
+        del res
+        if not ok:
+            raise AssertionError(f"priority {name} {order}: state against the "
+                                 f"kernel's {row['vs_kernel']}")
 
 
 def main() -> int:
@@ -1118,6 +1349,9 @@ def main() -> int:
         return 0
     entries, ctx = phase_main()
     entries += phase_push(ctx)
+    phase_fig8(ctx)
+    phase_orders(ctx)
+    phase_priority(ctx)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     RECORD["seconds"] = time.perf_counter() - t0

@@ -1,14 +1,17 @@
 """PyTorch/CUDA port of the ``repro`` package.
 
 The same surface as ``repro`` (see its ``__init__``) for what the port
-provides so far: :func:`solve` / :class:`EngineOptions` on the block
-Gauss–Seidel engine (``engine="async_block"``), the residual-push engine
+provides so far: :func:`solve` / :class:`EngineOptions` on the synchronous
+Jacobi engine (``engine="sync"``), the block Gauss–Seidel engine
+(``engine="async_block"``), the residual-push engine
 (``engine="push"``) and the frontier-size router (``engine="auto"``), with
 backends ``"torch"`` and ``"kernel"`` and ``device="cuda"`` unless asked
 otherwise; :func:`run_incremental` with :class:`GraphDelta` for evolving
 graphs; the algorithm constructors; and :class:`Graph`. GoGraph ordering
-lives in ``repro_torch.core``. Attributes resolve lazily (PEP 562), and the
-package imports neither ``jax`` nor any module of ``repro``.
+and the competitor orders of the paper's evaluation live in
+``repro_torch.core``; the priority-scheduled block engine is
+``repro_torch.engine.run_priority_block``. Attributes resolve lazily (PEP
+562), and the package imports neither ``jax`` nor any module of ``repro``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ __all__ = [
     "make_multi_source_sssp",
     "remake",
     # engine shims (legacy spellings; thin wrappers over solve())
+    "run_sync",
     "run_async_block",
     "run_push",
     "estimate_frontier_fraction",
@@ -43,7 +47,7 @@ _ENGINE = {
     "solve", "EngineOptions", "EngineOptionsError", "EngineUnsupportedError",
     "get_algorithm", "ALGORITHMS", "AlgoInstance", "personalized_pagerank",
     "multi_source_sssp", "make_personalized_pagerank",
-    "make_multi_source_sssp", "remake", "run_async_block", "run_push",
+    "make_multi_source_sssp", "remake", "run_sync", "run_async_block", "run_push",
     "estimate_frontier_fraction", "run_incremental", "warm_state",
     "permute_state",
 }

@@ -1,6 +1,7 @@
 """The paper's contribution on the port: the M(.) metric over processing
-orders and the GoGraph divide-and-conquer reordering (numpy, identical ranks
-to the reference per seed)."""
+orders, the GoGraph divide-and-conquer reordering and the competitor orders
+it is evaluated against (numpy, identical ranks to the reference per
+seed)."""
 from repro_torch.core.metric import (
     block_fresh_fraction,
     metric_m,
@@ -14,7 +15,17 @@ from repro_torch.core.gograph import (
     gograph_order,
     regional_rerank,
 )
-from repro_torch.core import partition
+from repro_torch.core.baselines import (
+    all_reorderers,
+    default_order,
+    degree_sort,
+    gorder_like,
+    hub_cluster,
+    hub_sort,
+    rabbit_like,
+    random_order,
+)
+from repro_torch.core import baselines, partition
 
 __all__ = [
     "metric_m",
@@ -27,4 +38,13 @@ __all__ = [
     "extend_rank",
     "regional_rerank",
     "partition",
+    "baselines",
+    "all_reorderers",
+    "default_order",
+    "random_order",
+    "degree_sort",
+    "hub_sort",
+    "hub_cluster",
+    "rabbit_like",
+    "gorder_like",
 ]

@@ -1,5 +1,6 @@
-"""Iterative engines of the port: algorithm specs, round drivers, the block
-Gauss–Seidel and residual-push engines, incremental delta absorption and the
+"""Iterative engines of the port: algorithm specs, round loops, the
+synchronous (Jacobi), block Gauss–Seidel, priority-scheduled and
+residual-push engines, incremental delta absorption and the
 :func:`solve` entry point.
 
 Names resolve lazily so that ``repro_torch.engine.algorithms`` can be
@@ -21,6 +22,8 @@ _NAMES = {
     "EngineUnsupportedError": "api",
     "solve": "api",
     "run_async_block": "async_block",
+    "run_priority_block": "priority",
+    "run_sync": "sync",
     "RunResult": "convergence",
     "estimate_frontier_fraction": "push",
     "run_push": "push",

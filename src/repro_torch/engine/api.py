@@ -8,8 +8,8 @@ pass, one exception family:
   meaningless option combination.
 * :class:`EngineUnsupportedError` (an :class:`EngineOptionsError` and a
   ``NotImplementedError``) — a meaningful combination this package does not
-  implement, including the engines the port has not reached yet (``sync``
-  and ``distributed``).
+  implement, including the engine the port has not reached yet
+  (``distributed``).
 
 Backends: ``"torch"`` (torch ops, the reference's ``"jax"``) and
 ``"kernel"`` (the hand-written CUDA kernel, the reference's ``"pallas"``).
@@ -34,7 +34,6 @@ BACKENDS = ("torch", "kernel")
 
 # engines of the reference the port has not reached, and where they are queued
 _NOT_PORTED = {
-    "sync": "ROADMAP §A item 2 (engine/sync.py)",
     "distributed": "ROADMAP §A item 10 (engine/distributed.py)",
 }
 
@@ -234,15 +233,16 @@ def solve(
 ) -> "RunResult":
     """Converge ``algo`` with the chosen engine — the single entry path.
 
-    ``engine``: ``"async_block"`` (block Gauss–Seidel), ``"push"``
-    (vertex-granular residual push, `engine.push`) or ``"auto"`` (the
-    frontier-size router: estimate the initial pending fraction with
+    ``engine``: ``"sync"`` (Jacobi rounds, torch ops only),
+    ``"async_block"`` (block Gauss–Seidel), ``"push"`` (vertex-granular
+    residual push, `engine.push`) or ``"auto"`` (the frontier-size router:
+    estimate the initial pending fraction with
     `engine.push.estimate_frontier_fraction` and pick ``"push"`` below
     ``options.push_threshold``, ``"async_block"`` above or whenever the
-    semiring has no push formulation). ``"sync"`` and ``"distributed"``
-    raise :class:`EngineUnsupportedError` naming the ROADMAP item that ports
-    them. ``options`` is an :class:`EngineOptions`; keyword ``overrides``
-    are applied on top. ``rank=`` runs the solve relabeled and returns the
+    semiring has no push formulation). ``"distributed"`` raises
+    :class:`EngineUnsupportedError` naming the ROADMAP item that ports it.
+    ``options`` is an :class:`EngineOptions`; keyword ``overrides`` are
+    applied on top. ``rank=`` runs the solve relabeled and returns the
     state in the caller's id space.
     """
     o = options if options is not None else EngineOptions()
@@ -299,10 +299,11 @@ def solve(
             frontier=None if o.frontier is None
             else permute_state(np.asarray(o.frontier), rank),
         )
-    from repro_torch.engine import async_block, push
+    from repro_torch.engine import async_block, push, sync
     from repro_torch.obs.trace import tspan
 
-    impl = {"async_block": async_block._solve, "push": push._solve}[engine]
+    impl = {"sync": sync._solve, "async_block": async_block._solve,
+            "push": push._solve}[engine]
     with tspan(o.trace, "solve", algo=algo.name, engine=engine,
                backend=o.backend, n=algo.n, d=algo.d) as sp:
         with _transfer_guard(o.transfer_guard, device):

@@ -29,31 +29,31 @@ from repro_torch.obs.trace import tspan
 
 
 def _run(
-    esrc, edst, ew, offsets, x_start, x0, c, fixed, *,
+    rows, x_start, x0, c, fixed, *,
     bs: int, nb: int, n_real: int,
     sem_reduce: str, sem_edge: str, comb: str, res_kind: str,
     eps: float, max_iters: int, identity: float, inner: int,
     extrapolate_every: int,
 ):
     """Torch-ops block sweep driven by `harness.loop`. Block i's in-edges
-    are ``esrc/edst/ew[offsets[i]:offsets[i+1]]`` — the real slots of the
-    padded lists, in slot order (padding slots only reduce the identity
-    in, so they are dropped)."""
+    are ``rows[i] = (src, lengths, w)`` (`harness.block_segments`: the real
+    slots of the padded lists, grouped by destination; padding slots only
+    reduce the identity in, so they are dropped), and each destination's
+    messages are reduced in slot order, the same sum on every run."""
     d = x0.shape[1]
     c_blk = c.view(nb, bs, d)
     fixed_blk = fixed.view(nb, bs, d)
     x0_blk = x0.view(nb, bs, d)  # pin source stays x0 even when warm-started
     real_mask = torch.arange(nb * bs, device=x0.device) < n_real
-    rows = [(esrc[a:b], edst[a:b], ew[a:b]) for a, b in zip(offsets[:-1], offsets[1:])]
 
     def sweep(x):
         x = x.clone()
         for i in range(nb):
-            srcs, dsts, w = rows[i]
+            srcs, lengths, w = rows[i]
             sl = slice(i * bs, (i + 1) * bs)
             for _ in range(inner):
                 msgs = T.edge_op(sem_edge, x[srcs], w)
-                agg = T.segment_reduce(sem_reduce, msgs, dsts, bs, identity)
+                agg = T.segment_reduce_sorted(sem_reduce, msgs, lengths, identity)
                 x[sl] = T.combine(comb, agg, c_blk[i], x[sl], fixed_blk[i], x0_blk[i])
         return x
 
@@ -80,13 +80,10 @@ def _solve(algo: AlgoInstance, o) -> RunResult:
         def dev(a):
             return harness.to_device(a, device)
 
-        offsets = [0, *np.cumsum(be.emask.sum(axis=1)).tolist()]
-        esrc = dev(be.esrc[be.emask].astype(np.int64))
-        edst = dev(be.edst[be.emask].astype(np.int64))
-        ew = dev(be.ew[be.emask])
+        rows = harness.block_segments(be, device)
     x_start = harness.init_state(x0, o.x_init, algo.n)
     out = _run(
-        esrc, edst, ew, offsets, dev(x_start), dev(x0), dev(c), dev(fixed),
+        rows, dev(x_start), dev(x0), dev(c), dev(fixed),
         bs=o.bs, nb=be.nb, n_real=algo.n,
         sem_reduce=algo.semiring.reduce,
         sem_edge=algo.semiring.edge_op,

@@ -4,6 +4,8 @@
 * :func:`check_extrapolation` — the Aitken guard `run_incremental` applies.
 * :func:`pack` — the one block-padding path (min/max-semiring pads are the
   reduce identity; ``c`` pads are 0.0 under the ``replace`` combine).
+* :func:`block_segments` — each block's in-edges grouped by destination,
+  for the block engines' order-fixed reductions.
 * :func:`loop` — the per-sweep round driver with per-column convergence
   freezing. The reference runs it inside one ``lax.while_loop``; here it is
   a Python loop over device tensors that asks the device once per round
@@ -86,6 +88,24 @@ def pack(algo: AlgoInstance, bs: int):
     c = pad_state(algo.c, bs, fill=algo.c_pad_fill)
     fixed = pad_state(algo.fixed, bs, fill=True)
     return be, x0, c, fixed, npad
+
+
+def block_segments(be, device) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Each destination block's real in-edges as ``(src, lengths, w)`` on
+    ``device``, grouped by the block's local destination (in slot order
+    within one destination), ``lengths[v]`` edges into its vertex v: the
+    operands of `torch_ops.segment_reduce_sorted`."""
+    nb, bs = be.nb, be.bs
+    counts = be.emask.sum(axis=1)
+    blk = np.repeat(np.arange(nb), counts)
+    local = be.edst[be.emask].astype(np.int64)
+    by_dst = np.lexsort((local, blk))
+    src = to_device(be.esrc[be.emask].astype(np.int64)[by_dst], device)
+    w = to_device(be.ew[be.emask][by_dst], device)
+    lengths = to_device(np.bincount(blk * bs + local, minlength=nb * bs).reshape(nb, bs), device)
+    offsets = [0, *np.cumsum(counts).tolist()]
+    return [(src[a:b], lengths[i], w[a:b])
+            for i, (a, b) in enumerate(zip(offsets[:-1], offsets[1:]))]
 
 
 def init_state(x0_packed: np.ndarray, x_init, n: int) -> np.ndarray:

@@ -29,21 +29,22 @@ def edge_op(kind: str, x_src: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     raise ValueError(kind)
 
 
-_SCATTER_REDUCE = {"sum": "sum", "min": "amin", "max": "amax"}
+_SEGMENT_REDUCE = {"sum": "sum", "min": "min", "max": "max"}
 
 
-def segment_reduce(
-    kind: str, msgs: torch.Tensor, dst: torch.Tensor, n: int, identity: float
+def segment_reduce_sorted(
+    kind: str, msgs: torch.Tensor, lengths: torch.Tensor, identity: float
 ) -> torch.Tensor:
-    """``out[v] = REDUCE_{e: dst[e] == v} msgs[e]``, empty segments at
-    ``identity``."""
-    if kind not in _SCATTER_REDUCE:
+    """``out[v] = REDUCE`` of the ``lengths[v]`` messages of vertex v, over
+    messages grouped by destination; empty segments at ``identity``. Each
+    segment is reduced in message order, so a sum is the same on every run,
+    on the card too (a scatter that adds with atomics sums in a varying
+    order, and PageRank's largest states then move by an ulp, more than
+    eps, every round)."""
+    if kind not in _SEGMENT_REDUCE:
         raise ValueError(kind)
-    out = torch.full((n,) + tuple(msgs.shape[1:]), identity, dtype=msgs.dtype,
-                     device=msgs.device)
-    index = dst.view(-1, *([1] * (msgs.ndim - 1))).expand_as(msgs)
-    return out.scatter_reduce_(0, index, msgs, reduce=_SCATTER_REDUCE[kind],
-                               include_self=True)
+    return torch.segment_reduce(msgs, _SEGMENT_REDUCE[kind], lengths=lengths, axis=0,
+                                initial=identity)
 
 
 def combine(

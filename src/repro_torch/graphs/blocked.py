@@ -11,6 +11,9 @@ Counterpart of ``repro.graphs.blocked``. Two packings:
   CSR-of-tiles form (``tiles[nnz_blocks, bs, bs]`` + ``rowptr[nb+1]`` /
   ``tilecols[nnz_blocks]``).
 
+:func:`block_dependency_structure` is the tile structure alone, without
+payloads: the skeleton the priority engine schedules over.
+
 The index arrays stay host numpy. :func:`pack_bsr_flat` scatters the tile
 payload with torch on the requested device: at a graph of 10^5 vertices the
 tiles are several GB, so building them where they are used saves the host
@@ -237,3 +240,21 @@ def pad_state(x: np.ndarray, bs: int, fill=0.0) -> np.ndarray:
         return x.copy()
     pad_width = [(0, np_ - n)] + [(0, 0)] * (x.ndim - 1)
     return np.pad(x, pad_width, constant_values=fill)
+
+
+def block_dependency_structure(
+    src: np.ndarray, dst: np.ndarray, n: int, bs: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The nonzero block structure only — ``(rowptr, tilerows, tilecols)``
+    over unique (dst block, src block) pairs, no tile payloads. This is the
+    O(nnz_blocks) skeleton the priority scheduler propagates deltas over
+    (``prio[tilerows] += delta[tilecols]``) instead of a dense (nb, nb)
+    indicator matmul."""
+    nb = num_blocks(n, bs)
+    key = (np.asarray(dst, np.int64) // bs) * nb + (np.asarray(src, np.int64) // bs)
+    uniq = np.unique(key)
+    rows = (uniq // nb).astype(np.int32)
+    cols = (uniq % nb).astype(np.int32)
+    rowptr = np.zeros(nb + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=nb), out=rowptr[1:])
+    return rowptr.astype(np.int32), rows, cols

@@ -11,13 +11,17 @@ for plus_times, min_plus, max_min and max_times; row-blocks with no tiles
 get the reduce identity (the semantics of ``repro.kernels.ref.ref_bsr_spmm``).
 
 What bounds it on the card: the tiles are read once (``nnz * bs * bs * 4``
-bytes) and the product does ``2 * nnz * bs * bs * d`` operations, which
-dominate at d = 64. The kernel runs one CTA per (row-block, chunk of at most
-64 columns), keeps the output block in registers (4 x 4 blocks per thread
-at the main path's shape, bs and d multiples of 64) and stages each tile and
-its gathered source rows through shared memory in slices; every output
-element is one sequential chain over (tile, k), so the result is
-deterministic and independent of the column chunk ``dj``.
+bytes) and the product does ``2 * nnz * bs * bs * d`` operations. At the
+main path's shape (bs and d multiples of 64) plus_times runs on the tensor
+cores in 3xTF32 (each operand split into two TF32 parts, three products
+summed in f32), so the tile stream bounds it: persistent CTAs take
+row-blocks heaviest first (:func:`heavy_first`, a device-side sort) through
+an atomic counter, a producer warp keeps three stages of tile and source
+slices in flight with TMA, and a warpgroup runs ``wgmma``.
+The lattice pairs keep one CTA per (row-block, chunk of at most 64 columns)
+with the output block in registers. Every output element is summed in one
+fixed order, so the result is deterministic and independent of the column
+chunk ``dj``.
 
 :func:`bsr_spmm` launches the kernel for CUDA tensors and runs
 :func:`bsr_spmm_plain` for CPU tensors; there is no fallback from one to the
@@ -33,7 +37,6 @@ from repro_torch.kernels.semirings import ACC_IDENTITY, SEMIRING_CODE
 
 # kernel launches since the count was last set to 0
 launches = 0
-
 
 
 def reset_launches() -> None:
@@ -95,7 +98,7 @@ def _lib():
     lib = load("bsr_spmm")
     if not getattr(lib, "_spmm_typed", False):
         vp = ctypes.c_void_p
-        lib.bsr_spmm_launch.argtypes = [ctypes.c_int] + [vp] * 5 + [ctypes.c_int] * 4 + [vp]
+        lib.bsr_spmm_launch.argtypes = [ctypes.c_int] + [vp] * 7 + [ctypes.c_int] * 5 + [vp]
         lib.bsr_spmm_launch.restype = ctypes.c_int
         lib._spmm_typed = True
     return lib
@@ -112,6 +115,14 @@ def _require(t, name: str, dtype, device) -> None:
         raise ValueError(f"bsr_spmm: {name} must be contiguous")
 
 
+def heavy_first(rowptr: torch.Tensor) -> torch.Tensor:
+    """Row-block ids by tile count, heaviest first (ties by id), as
+    ``int32``: the order in which the tensor-core path hands out its work.
+    A stable sort on the tensors' device; no host readout."""
+    lens = rowptr[1:] - rowptr[:-1]
+    return torch.sort(lens, descending=True, stable=True).indices.to(torch.int32)
+
+
 def _launch(rowptr, tilecols, tiles, x, *, semiring, bs, dj):
     global launches
     dev = x.device
@@ -124,10 +135,13 @@ def _launch(rowptr, tilecols, tiles, x, *, semiring, bs, dj):
     lib = _lib()
     with torch.cuda.device(dev):
         y = torch.empty((n, d), dtype=torch.float32, device=dev)
+        order = heavy_first(rowptr)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bsr_spmm_launch(
             SEMIRING_CODE[semiring], rowptr.data_ptr(), tilecols.data_ptr(),
-            tiles.data_ptr(), x.data_ptr(), y.data_ptr(), nb, bs, d, dj, stream,
+            tiles.data_ptr(), x.data_ptr(), y.data_ptr(), order.data_ptr(),
+            counter.data_ptr(), nb, tiles.shape[0], bs, d, dj, stream,
         )
     if err:
         raise RuntimeError(f"bsr_spmm: kernel launch failed with CUDA error {err}")

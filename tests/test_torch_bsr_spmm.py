@@ -127,3 +127,15 @@ def test_unknown_semiring_rejected():
     bsr, x = _operands("plus_times", 16, 1)
     with pytest.raises(NotImplementedError, match="unknown semiring"):
         TK.bsr_spmm(*_port_args(bsr, x), semiring="min_times")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_heavy_first_orders_rows_by_tiles(seed):
+    """The tensor-core path's work order: row-blocks by tile count,
+    heaviest first, ties by id (a stable sort), as int32."""
+    B = importlib.import_module("repro_torch.kernels.bsr_spmm")
+    lens = np.random.default_rng(seed).integers(0, 5, size=40)
+    rowptr = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]).astype(np.int32))
+    order = B.heavy_first(rowptr)
+    assert order.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(), np.argsort(-lens, kind="stable"))

@@ -188,7 +188,7 @@ def test_extrapolation_on_lattice_unsupported():
         rt.solve(ta, extrapolate_every=4, device="cpu")
 
 
-@pytest.mark.parametrize("engine", ["sync", "distributed"])
+@pytest.mark.parametrize("engine", ["distributed"])
 def test_unported_engines_raise(engine):
     ta = algo_from_arrays(algo_fields(_instance("ms_sssp", 1)))
     with pytest.raises(T_api.EngineUnsupportedError, match="ROADMAP"):

@@ -262,9 +262,12 @@ def test_incremental_rejections_match_reference():
     other = algo_from_arrays(algo_fields(repro.get_algorithm("bfs", _graphs()[0], source=3)))
     with pytest.raises(ValueError, match="instance mismatch"):
         TI.run_incremental(ta_new, other, prior, device="cpu")
-    # the sync engine is not ported: it raises through solve
-    with pytest.raises(T_api.EngineUnsupportedError, match="ROADMAP"):
-        TI.run_incremental(ta_new, ta_old, prior, engine="sync", device="cpu")
+    # the sync engine runs the warm start as the reference's does
+    r_sync = RI.run_incremental(ra_new, ra_old, prior, engine="sync")
+    t_sync = TI.run_incremental(ta_new, ta_old, prior, engine="sync", device="cpu")
+    np.testing.assert_array_equal(t_sync.x, r_sync.x)
+    assert t_sync.rounds == r_sync.rounds
+    np.testing.assert_array_equal(t_sync.col_rounds, r_sync.col_rounds)
     # a period of 1 on the sum delta system
     pa_old, pa_new, pt_old, pt_new, pprior = _scenario("ppr3", "insert")
     with pytest.raises(R_api.EngineOptionsError):
