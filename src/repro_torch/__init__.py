@@ -10,8 +10,10 @@ otherwise; :func:`run_incremental` with :class:`GraphDelta` for evolving
 graphs; the algorithm constructors; and :class:`Graph`. GoGraph ordering
 and the competitor orders of the paper's evaluation live in
 ``repro_torch.core``; the priority-scheduled block engine is
-``repro_torch.engine.run_priority_block``. Attributes resolve lazily (PEP
-562), and the package imports neither ``jax`` nor any module of ``repro``.
+``repro_torch.engine.run_priority_block``; :class:`GraphServer` serves
+query traffic over resident state families (``repro_torch.serving``).
+Attributes resolve lazily (PEP 562), and the package imports neither
+``jax`` nor any module of ``repro``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,9 @@ __all__ = [
     "permute_state",
     "GraphDelta",
     "Graph",
+    # serving
+    "GraphServer",
+    "Ticket",
 ]
 
 _ENGINE = {
@@ -51,7 +56,12 @@ _ENGINE = {
     "estimate_frontier_fraction", "run_incremental", "warm_state",
     "permute_state",
 }
-_GRAPHS = {"GraphDelta": "repro_torch.graphs.delta", "Graph": "repro_torch.graphs.graph"}
+_MODULES = {
+    "GraphDelta": "repro_torch.graphs.delta",
+    "Graph": "repro_torch.graphs.graph",
+    "GraphServer": "repro_torch.serving.server",
+    "Ticket": "repro_torch.serving.server",
+}
 
 
 def __getattr__(name: str):
@@ -59,8 +69,8 @@ def __getattr__(name: str):
 
     if name in _ENGINE:
         return getattr(importlib.import_module("repro_torch.engine"), name)
-    if name in _GRAPHS:
-        return getattr(importlib.import_module(_GRAPHS[name]), name)
+    if name in _MODULES:
+        return getattr(importlib.import_module(_MODULES[name]), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -3,9 +3,12 @@ orders, the GoGraph divide-and-conquer reordering and the competitor orders
 it is evaluated against (numpy, identical ranks to the reference per
 seed)."""
 from repro_torch.core.metric import (
+    MetricTracker,
     block_fresh_fraction,
+    edge_span,
     metric_m,
     metric_m_torch,
+    metric_table,
     positive_edge_fraction,
 )
 from repro_torch.core.gograph import (
@@ -32,6 +35,9 @@ __all__ = [
     "metric_m_torch",
     "positive_edge_fraction",
     "block_fresh_fraction",
+    "MetricTracker",
+    "edge_span",
+    "metric_table",
     "gograph_order",
     "GoGraphConfig",
     "RankMaintainer",

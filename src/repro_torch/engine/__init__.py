@@ -21,6 +21,8 @@ _NAMES = {
     "EngineOptionsError": "api",
     "EngineUnsupportedError": "api",
     "solve": "api",
+    "AsyncBlockSession": "async_block",
+    "BatchReport": "async_block",
     "run_async_block": "async_block",
     "run_priority_block": "priority",
     "run_sync": "sync",

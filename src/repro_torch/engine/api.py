@@ -34,7 +34,7 @@ BACKENDS = ("torch", "kernel")
 
 # engines of the reference the port has not reached, and where they are queued
 _NOT_PORTED = {
-    "distributed": "ROADMAP §A item 10 (engine/distributed.py)",
+    "distributed": "ROADMAP §A3 (engine/distributed.py)",
 }
 
 

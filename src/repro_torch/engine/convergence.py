@@ -54,6 +54,14 @@ class RunResult:
         return np.abs(x_star_sum - self.state_sums[: self.rounds])
 
 
+def trim_trace(residuals, sums, rounds: int) -> tuple[np.ndarray, np.ndarray]:
+    """The first ``rounds`` entries of a run's residual and state-sum
+    traces, as host arrays."""
+    residuals = np.asarray(residuals)[:rounds]
+    sums = np.asarray(sums)[:rounds]
+    return residuals, sums
+
+
 def converge_step(res_col, eps: float, col_done, col_rounds):
     """One round of per-column convergence accounting.
 
@@ -80,18 +88,24 @@ def freeze_columns(x_cand: torch.Tensor, x_prev: torch.Tensor,
     return torch.where(advance[None, :], x_cand, x_prev)
 
 
+def device_index(cols, device) -> torch.Tensor:
+    """Column indices as an int64 tensor built on ``device`` by fills, so
+    nothing crosses from the host (indexing or assigning with host values
+    stages them through a copy that synchronises with the card)."""
+    cols = np.asarray(cols, np.int64).reshape(-1).tolist()
+    if not cols:
+        return torch.zeros(0, dtype=torch.int64, device=device)
+    return torch.cat([torch.full((1,), j, dtype=torch.int64, device=device)
+                      for j in cols])
+
+
 def reinit_columns(col_done, col_rounds, cols):
     """Reset exactly the given columns' bookkeeping (done flag cleared,
     round count zeroed) — the inverse of the freeze. Accepts numpy arrays or
     torch tensors; inputs are not mutated."""
     if isinstance(col_done, torch.Tensor):
-        idx = torch.as_tensor(np.asarray(cols, np.int64).reshape(-1),
-                              device=col_done.device)
-        col_done = col_done.clone()
-        col_rounds = col_rounds.clone()
-        col_done[idx] = False
-        col_rounds[idx] = 0
-        return col_done, col_rounds
+        idx = device_index(cols, col_done.device)
+        return col_done.index_fill(0, idx, False), col_rounds.index_fill(0, idx, 0)
     cols = np.asarray(cols, dtype=np.int64).reshape(-1)
     col_done = np.asarray(col_done).copy()
     col_rounds = np.asarray(col_rounds).copy()

@@ -14,6 +14,11 @@
 * :func:`sweep_batched_loop` — the host driver of the multi-sweep kernel:
   one readout per batch of sweeps.
 * :func:`finalize` — raw loop outputs to a host :class:`RunResult`.
+* The serving helpers: :func:`swap_in_column` (host) and
+  :func:`swap_in_column_device` put a new query into one column of a
+  resident state, :func:`gather_rows` moves a state between processing
+  orders on its device, and :func:`column_support` with :data:`X0_FILL`
+  says which vertices a query involves.
 """
 from __future__ import annotations
 
@@ -24,7 +29,12 @@ import numpy as np
 import torch
 
 from repro_torch.engine.algorithms import AlgoInstance
-from repro_torch.engine.convergence import RunResult, converge_step, freeze_columns
+from repro_torch.engine.convergence import (
+    RunResult,
+    converge_step,
+    device_index,
+    freeze_columns,
+)
 from repro_torch.engine import torch_ops as T
 from repro_torch.graphs.blocked import pack_in_edges, pad_state, padded_n
 from repro_torch.graphs.graph import Graph
@@ -135,6 +145,103 @@ def permute_state(x: np.ndarray, rank: np.ndarray) -> np.ndarray:
     inv = np.empty_like(rank)
     inv[rank] = np.arange(len(rank))
     return np.asarray(x)[inv]
+
+
+def swap_in_column(
+    x: np.ndarray, x0: np.ndarray, c: np.ndarray, fixed: np.ndarray,
+    j: int, n: int,
+    q_x0: np.ndarray, q_c: np.ndarray, q_fixed: np.ndarray,
+) -> None:
+    """Mid-run per-column re-init — the inverse of :func:`loop`'s freeze.
+
+    Overwrite column ``j`` of the packed ``(npad, d)`` host operand
+    matrices with a newcomer's vertex arrays and reset the state column to
+    the newcomer's ``x0``. Rows ``>= n`` are padding and keep their fills.
+    Mutates the arrays in place; the companion bookkeeping reset is
+    `convergence.reinit_columns`.
+    """
+    x0[:n, j] = np.asarray(q_x0, x0.dtype).reshape(-1)
+    c[:n, j] = np.asarray(q_c, c.dtype).reshape(-1)
+    fixed[:n, j] = np.asarray(q_fixed, fixed.dtype).reshape(-1)
+    x[:, j] = x0[:, j]
+
+
+def swap_in_column_device(
+    x: torch.Tensor, x0: torch.Tensor, c: torch.Tensor, fixed: torch.Tensor,
+    j: int, n: int,
+    q_x0: np.ndarray, q_c: np.ndarray, q_fixed: np.ndarray,
+    *, x0_fill: float, c_fill: float,
+):
+    """:func:`swap_in_column` for ``(npad, d)`` operands on a device.
+
+    Pads the newcomer's length-``n`` vectors with the family's fills (the
+    fills :func:`pack` used, so padding rows stay pinned) and writes the
+    four columns functionally, the slot index a tensor on the device.
+    Returns new ``(x, x0, c, fixed)``; only the newcomer's three vectors
+    cross to the device, in one staged copy. ``fixed`` keeps its dtype
+    (bool on the torch backend, f32 on the kernel's).
+    """
+    npad = x.shape[0]
+    q = np.empty((npad, 3), np.float32)
+    q[:, 0] = x0_fill
+    q[:, 1] = c_fill
+    q[:, 2] = 1.0  # pads pinned
+    q[:n, 0] = np.asarray(q_x0, np.float32).reshape(-1)
+    q[:n, 1] = np.asarray(q_c, np.float32).reshape(-1)
+    q[:n, 2] = np.asarray(q_fixed).reshape(-1).astype(np.float32)
+    qd = to_device(q, x.device)
+    idx = device_index([j], x.device)
+    xq = qd[:, 0:1]
+    return (
+        x.index_copy(1, idx, xq),
+        x0.index_copy(1, idx, xq),
+        c.index_copy(1, idx, qd[:, 1:2]),
+        fixed.index_copy(1, idx, qd[:, 2:3].to(fixed.dtype)),
+    )
+
+
+def gather_rows(x: torch.Tensor, idx) -> torch.Tensor:
+    """Row gather ``x[idx]`` on ``x``'s device, a new tensor.
+
+    The order-swap primitive: moving a state (or one column) between two
+    processing orders is two of these gathers — old rank -> id space via
+    ``rank_old``, id space -> new rank via ``order_new`` — and a gather is
+    a bit-copy, so min/max states move bitwise. A host ``idx`` crosses to
+    the device through :func:`to_device`."""
+    if not isinstance(idx, torch.Tensor):
+        idx = to_device(np.asarray(idx, np.int64), x.device)
+    return x[idx]
+
+
+# The value an *untouched* vertex holds at the start of every workload the
+# constructors build: 0 for the additive semiring, the +BIG sentinel for
+# min-reduce (unreached SSSP/BFS/CC), 0 for max-reduce. Vertices whose x0
+# differs from this — sources, seeds, pinned targets — are a query's inputs.
+X0_FILL = {"sum": 0.0, "min": 3.0e38, "max": 0.0}
+
+
+def column_support(
+    q_x0: np.ndarray, q_c: np.ndarray, q_fixed: np.ndarray,
+    *, reduce: str, c_fill: float, x: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """bool[n] — the vertices a query's column actually involves.
+
+    A vertex is in the support when the query injects something at it
+    (``x0`` off :data:`X0_FILL`, ``c`` off the pack fill, or pinned) or —
+    given a finished state ``x`` — when the run moved it off ``x0``.
+    Everything else holds the inert fill through the whole run, which lets
+    a swapped-in column seed only its support blocks into the kernel's
+    dirty frontier, and the result cache keep an entry across a delta that
+    touches no supported block (`serving.cache`).
+    """
+    q_x0 = np.asarray(q_x0).reshape(-1)
+    q_c = np.asarray(q_c).reshape(-1)
+    q_fixed = np.asarray(q_fixed).reshape(-1)
+    support = (q_x0 != np.float32(X0_FILL[reduce])) | (q_c != np.float32(c_fill))
+    support |= q_fixed.astype(bool)
+    if x is not None:
+        support |= np.asarray(x).reshape(-1) != q_x0
+    return support
 
 
 # Aitken extrapolation clamps the contraction-rate estimate here.

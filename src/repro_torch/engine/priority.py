@@ -5,9 +5,11 @@ Per scheduling round, select the top-k blocks by accumulated priority and
 update only those, one after another in selection order (Gauss–Seidel
 inside the round: a later selected block reads the states an earlier one
 just wrote). When block i's state moves by |delta_i|, every dependent block
-j (one with edges i -> j) inherits priority mass |delta_i|, through one
-scatter-add over the O(nnz_blocks) dependency pairs of
-`graphs.blocked.block_dependency_structure`.
+j (one with edges i -> j) inherits priority mass |delta_i|, summed over
+the O(nnz_blocks) dependency pairs of
+`graphs.blocked.block_dependency_structure`, which come sorted by
+dependent block: each block's incoming mass is reduced in pair order
+(`torch_ops.segment_reduce_sorted`) and then added to its priority.
 
 States are batched ``f32[n, d]``; a block's priority is its state motion
 summed over all d columns. Work is measured in *block updates*: ``rounds``
@@ -19,9 +21,10 @@ all ties. The reference's ``jax.lax.top_k`` breaks ties by the lower index;
 descending sort, which keeps the lower index first. Each round reads the
 device once: the stopping test and the round's selection in one transfer.
 A block's in-edges are grouped by destination once and reduced in that
-order (`torch_ops.segment_reduce_sorted`), so the sums, and with them the
-priorities and the stopping test, are the same on every run, on the card
-too.
+order (`torch_ops.segment_reduce_sorted`), and so is the priority mass a
+block receives, so the sums, and with them the priorities and the stopping
+test, are the same on every run, on the card too (an ``index_add_`` adds
+with atomics there, in an order that changes from run to run).
 """
 from __future__ import annotations
 
@@ -37,12 +40,14 @@ from repro_torch.engine import torch_ops as T
 def _block_dependency(
     algo: AlgoInstance, bs: int
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Unique (dst block, src block) dependency pairs: ``dep_dst[t]``
-    depends on ``dep_src[t]`` (an edge runs src-block -> dst-block)."""
+    """Unique (dst block, src block) dependency pairs, sorted by dst block:
+    returns ``(dep_lengths, dep_src)``, block i depending on the
+    ``dep_lengths[i]`` next entries of ``dep_src`` (an edge runs src-block
+    -> dst-block)."""
     from repro_torch.graphs.blocked import block_dependency_structure
 
-    _, dep_dst, dep_src = block_dependency_structure(algo.src, algo.dst, algo.n, bs)
-    return dep_dst, dep_src
+    rowptr, _, dep_src = block_dependency_structure(algo.src, algo.dst, algo.n, bs)
+    return np.diff(rowptr.astype(np.int64)), dep_src
 
 
 def _finite(a: torch.Tensor) -> torch.Tensor:
@@ -50,13 +55,14 @@ def _finite(a: torch.Tensor) -> torch.Tensor:
 
 
 def _run(
-    rows, x0, c, fixed, dep_dst, dep_src, *,
+    rows, x0, c, fixed, dep_lengths, dep_src, *,
     bs: int, nb: int, k_sel: int,
     sem_reduce: str, sem_edge: str, comb: str,
     eps: float, max_rounds: int, identity: float,
 ):
     """Block i's in-edges are ``rows[i] = (src, lengths, w)``, grouped by
-    destination with ``lengths[v]`` edges into the block's vertex v.
+    destination with ``lengths[v]`` edges into the block's vertex v; block
+    i depends on the ``dep_lengths[i]`` next blocks of ``dep_src``.
     Returns ``(x, k, res, total block updates)``."""
     d = x0.shape[1]
     dev = x0.device
@@ -88,7 +94,7 @@ def _run(
         delta_vec = torch.zeros((nb,), dtype=torch.float32, device=dev)
         delta_vec[sel] = torch.stack(deltas)
         prio[sel] = 0.0
-        prio.index_add_(0, dep_dst, delta_vec[dep_src])
+        prio += T.segment_reduce_sorted("sum", delta_vec[dep_src], dep_lengths, 0.0)
         # stop only when this round moved nothing AND no pending priority
         # remains anywhere (selected-quiet != converged)
         res = torch.maximum(torch.sum(delta_vec), torch.max(prio))
@@ -116,7 +122,7 @@ def run_priority_block(
     be, x0, c, fixed, npad = harness.pack(algo, bs)
     nb = be.nb
     k_sel = max(1, int(round(nb * select_frac)))
-    dep_dst, dep_src = _block_dependency(algo, bs)
+    dep_lengths, dep_src = _block_dependency(algo, bs)
     # priority scheduling needs an accumulated-change signal; for "changed"
     # algorithms (SSSP/BFS/CC) the L1 delta works identically. The threshold
     # is NOT scaled by d: total mass <= eps bounds every column's mass.
@@ -127,7 +133,7 @@ def run_priority_block(
 
     x, k, res, tot = _run(
         harness.block_segments(be, dev), to_dev(x0), to_dev(c), to_dev(fixed),
-        to_dev(dep_dst.astype(np.int64)), to_dev(dep_src.astype(np.int64)),
+        to_dev(dep_lengths), to_dev(dep_src.astype(np.int64)),
         bs=bs, nb=nb, k_sel=k_sel,
         sem_reduce=algo.semiring.reduce, sem_edge=algo.semiring.edge_op,
         comb=algo.combine, eps=float(eps), max_rounds=max_rounds,

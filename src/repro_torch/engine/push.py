@@ -28,9 +28,11 @@ their only candidate and are re-clamped every round.
 Two backends behind ``EngineOptions.backend``:
 
 * ``"torch"`` — one Jacobi-style push round as torch ops: all active
-  vertices push at once through masked edge messages and ``index_add_`` /
-  ``scatter_reduce_``. Frozen columns are masked out of the push, so
-  converged queries stay put bitwise.
+  vertices push at once through masked edge messages, summed per
+  destination in a fixed order (`torch_ops.segment_reduce_sorted`) or
+  reduced with ``scatter_reduce_`` (min/max, where order does not matter).
+  Frozen columns are masked out of the push, so converged queries stay put
+  bitwise.
 * ``"kernel"`` — the bucketed scatter kernel (`kernels.push_scatter`): the
   host bins the round's active vertices into ``EngineOptions.buckets``
   priority buckets (best first — smallest tentative distance for min_plus,
@@ -58,6 +60,7 @@ from repro_torch.engine.algorithms import AlgoInstance
 from repro_torch.engine.api import EngineOptions
 from repro_torch.engine.convergence import RunResult, converge_step
 from repro_torch.engine.harness import audited_sync, to_device
+from repro_torch.engine import torch_ops as T
 from repro_torch.graphs.graph import Graph
 from repro_torch.kernels.ops import _KERNEL_SEMIRING
 from repro_torch.kernels.semirings import ACC_IDENTITY, pending_cols
@@ -203,9 +206,17 @@ class _TorchRound:
 
     def __init__(self, algo: AlgoInstance, ks: str, device: torch.device) -> None:
         self.ks = ks
-        self.src = to_device(algo.src.astype(np.int64), device)
-        self.dst = to_device(algo.dst.astype(np.int64), device)
-        self.w = to_device(np.asarray(algo.w, np.float32)[:, None], device)
+        order = np.arange(algo.m)
+        if ks == "plus_times":
+            # edges grouped by destination once (stable within one): each
+            # vertex's incoming pushes are summed in that order, the same
+            # sum on every run (an index_add_ adds with atomics on the card)
+            order = np.argsort(algo.dst, kind="stable")
+            self.lengths = to_device(
+                np.bincount(algo.dst, minlength=algo.n).astype(np.int64), device)
+        self.src = to_device(algo.src.astype(np.int64)[order], device)
+        self.dst = to_device(algo.dst.astype(np.int64)[order], device)
+        self.w = to_device(np.asarray(algo.w, np.float32)[order, None], device)
         self.fixed = to_device(algo.fixed, device)
         self.x0 = to_device(np.asarray(algo.x0, np.float32).reshape(algo.n, algo.d),
                             device)
@@ -216,9 +227,8 @@ class _TorchRound:
         if self.ks == "plus_times":
             push = torch.where(mask, r, 0.0)
             p2 = p + push
-            r2 = r - push
-            r2.index_add_(0, self.dst, self.w * push[self.src])
-            return p2, torch.where(self.fixed, 0.0, r2)
+            agg = T.segment_reduce_sorted("sum", self.w * push[self.src], self.lengths, 0.0)
+            return p2, torch.where(self.fixed, 0.0, r - push + agg)
         lat_min = self.ks == "min_plus"
         newp = torch.minimum(p, r) if lat_min else torch.maximum(p, r)
         p2 = torch.where(mask, newp, p)

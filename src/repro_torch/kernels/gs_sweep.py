@@ -77,14 +77,14 @@ def or_dirty_blocks(dirty, vertex_mask, n: int, bs: int):
     """OR a vertex-level support mask into a per-row-block dirty bitmap.
 
     ``dirty`` may be host numpy or a torch tensor; a tensor is OR-ed on its
-    own device and stays there."""
+    own device and stays there (the host bitmap is staged through
+    `harness.to_device`, an audited copy)."""
+    from repro_torch.engine.harness import to_device
     from repro_torch.graphs.blocked import frontier_blocks
 
     add = frontier_blocks(np.asarray(vertex_mask), n, bs)
     if isinstance(dirty, torch.Tensor):
-        return torch.maximum(
-            dirty, torch.as_tensor(add, device=dirty.device)
-        ).to(torch.int32)
+        return torch.maximum(dirty, to_device(add, dirty.device)).to(torch.int32)
     return np.maximum(np.asarray(dirty, np.int32), add).astype(np.int32)
 
 

@@ -182,6 +182,24 @@ def test_or_dirty_blocks_matches_reference():
     np.testing.assert_array_equal(got_t.numpy(), want)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_or_dirty_blocks_on_a_tensor_stages_the_bitmap(seed):
+    """On a tensor the host bitmap is staged through ``harness.to_device``:
+    the same bits as the host path and the reference, a new int32 tensor on
+    the input's device, the input untouched."""
+    rng = np.random.default_rng(seed)
+    nb = -(-N // BS)
+    dirty = (rng.random(nb) < 0.3).astype(np.int32)
+    mask = rng.random(N) < 0.01
+    want = r_or_dirty_blocks(dirty, mask, N, BS)
+    before = torch.from_numpy(dirty.copy())
+    got = K.or_dirty_blocks(before, mask, N, BS)
+    assert got.dtype == torch.int32 and got.device == before.device
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), K.or_dirty_blocks(dirty, mask, N, BS))
+    np.testing.assert_array_equal(before.numpy(), dirty)
+
+
 def _run_plain(host, dirty, kw, order=None):
     h = dict(host)
     if order is not None:  # the kernel's per-block tile order

@@ -23,7 +23,9 @@ def test_port_modules_listed():
     assert "repro_torch.kernels.gs_sweep" in MODULES
     assert "repro_torch.engine.api" in MODULES
     for name in ("engine.push", "engine.incremental", "graphs.delta",
-                 "kernels.push_scatter", "kernels.bsr_spmm"):
+                 "kernels.push_scatter", "kernels.bsr_spmm", "serving.server",
+                 "serving.scheduler", "serving.cache", "serving.stats",
+                 "obs.metrics"):
         assert f"repro_torch.{name}" in MODULES
 
 

@@ -130,3 +130,25 @@ def test_block_dependency_structure_empty_graph():
     t = TB.block_dependency_structure(e, e, 100, 16)
     for a, b in zip(r, t):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("bs", [16, 64])
+def test_priority_mass_sorted_sums_match_scatter_add(bs):
+    """The mass each block receives, summed per dependent block in pair
+    order, equals a scatter-add over the reference's dependency pairs."""
+    from repro_torch.engine.priority import _block_dependency
+    from repro_torch.engine import torch_ops as T
+
+    ra = _instance("pagerank", 1, "ic")
+    ta = _port(ra)
+    _, rows, cols = RB.block_dependency_structure(ra.src, ra.dst, ra.n, bs)
+    lengths, dep_src = _block_dependency(ta, bs)
+    nb = len(lengths)
+    delta = np.random.default_rng(bs).random(nb).astype(np.float32)
+    want = np.zeros(nb, np.float64)
+    np.add.at(want, rows, delta[cols])
+    got = T.segment_reduce_sorted(
+        "sum", torch.from_numpy(delta)[torch.from_numpy(dep_src.astype(np.int64))],
+        torch.from_numpy(lengths), 0.0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(dep_src, cols)

@@ -253,3 +253,33 @@ def test_sum_push_gap_to_sweep_is_the_reference_s():
     ref_gap = np.abs(np.asarray(r.x) - sweep).max()
     assert ref_gap > 20 * ra.eps
     assert abs(np.abs(t.x - sweep).max() - ref_gap) <= 20 * ra.eps
+
+
+@pytest.mark.parametrize("d", [1, 3])
+def test_torch_round_sum_matches_reference_round(d):
+    """One plus_times push round of the torch backend (per-destination
+    sorted segment sums) against the reference's jax round (scatter-add),
+    from the same random state and active set."""
+    import jax.numpy as jnp
+
+    from repro.engine.push import _make_round_jax
+    from repro_torch.engine.push import _TorchRound
+
+    ra, ta = _pair("ppr", seeds=list(range(0, 3 * d, 3)))
+    rng = np.random.default_rng(d)
+    p = rng.random((ra.n, d)).astype(np.float32)
+    r = (rng.random((ra.n, d)) * 1e-3).astype(np.float32)
+    active = rng.random(ra.n) < 0.4
+    live = np.ones(d, bool)
+    live[-1] = d == 1
+    want = _make_round_jax(ra, "plus_times")(
+        jnp.asarray(p), jnp.asarray(r), jnp.asarray(active), jnp.asarray(live))
+    got = _TorchRound(ta, "plus_times", torch.device("cpu"))(
+        torch.from_numpy(p), torch.from_numpy(r), torch.from_numpy(active),
+        torch.from_numpy(live))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-6, atol=1e-9)
+    again = _TorchRound(ta, "plus_times", torch.device("cpu"))(
+        torch.from_numpy(p), torch.from_numpy(r), torch.from_numpy(active),
+        torch.from_numpy(live))
+    assert torch.equal(again[1], got[1])
