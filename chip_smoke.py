@@ -5,8 +5,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-each, all at once, into ``build/repro_torch/``) and holds each against its
-plain PyTorch version on small cases, each kernel run twice for the same
+each, all at once, into ``build/repro_torch/``), holds every instantiation's
+ptxas report to its declared Hopper budget (``repro_torch.kernels.budgets``:
+registers, static shared bytes, no spills; a missing report fails) and
+holds each kernel against its plain PyTorch version on small cases, each kernel run twice for the same
 bits; the push kernel also on rounds built to stress its wave schedule (a
 star hub, self-loops, parallel edges, one slot, waves at the slot cap,
 vertices pushed twice), the BSR product's tensor-core path also at bs and
@@ -30,6 +32,13 @@ graph:
   tickets across it against cold solves on the new graph, one resubmitted
   query against the cache's rule; then the priority engine and the push
   engine's torch round, each run twice for the same bits;
+* the distributed engine — ``solve(engine="distributed")`` at bs 256 on one
+  NCCL rank (a 1-D "cuda" ``DeviceMesh``), the d = 64 PPR and SSSP batches
+  bitwise equal to the torch-ops ``async_block`` backend, global PageRank
+  under both orders and three supersteps under ``torch.profiler``; the same
+  cases on four gloo rank processes sharing the card (this script, started
+  as ``--dist-rank k DIR``), held to the one-rank states and to each other;
+  and the serving run above on ``GraphServer(backend="distributed")``;
 * the push path — ``solve(engine="auto")`` routing the d = 64 PPR batch and
   a one-seed PPR query to the push engine and global PageRank to the sweep
   kernel; ``run_incremental`` absorbing two graph deltas into the converged
@@ -126,13 +135,16 @@ def phase_env() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    """One nvcc per kernel source, all started together."""
-    from repro_torch.kernels import _build
+    """One nvcc per kernel source, all started together; each source's
+    ptxas report held to `repro_torch.kernels.budgets` (a missing report
+    fails)."""
+    from repro_torch.kernels import _build, budgets
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         list(pool.map(_build.load, KERNELS))
     RECORD["build"] = {}
+    problems = []
     for name in KERNELS:
         info = _build.BUILD_INFO[name]
         log(f"[build] {name}.cu for sm_90a: {info['seconds']:.1f} s nvcc -> {info['path']}")
@@ -140,7 +152,28 @@ def phase_build() -> None:
                             if "registers" in ln or "spill" in ln}):
             log(f"[build] {line}")
         RECORD["build"][name] = {k: info[k] for k in ("seconds", "path", "ptxas")}
+        problems += budgets.check_ptxas(info["ptxas"], f"{name}.cu")
     log(f"[build] {time.perf_counter() - t0:.1f} s for all kernels")
+    # every instantiation against its kernel's declared Hopper budget
+    used: dict[str, dict] = {}
+    for name in KERNELS:
+        for e in budgets.parse_ptxas(_build.BUILD_INFO[name]["ptxas"]):
+            u = used.setdefault(e.kernel, {"instantiations": 0, "registers": 0, "smem": 0,
+                                           "spill_bytes": 0})
+            u["instantiations"] += 1
+            u["registers"] = max(u["registers"], e.registers)
+            u["smem"] = max(u["smem"], e.smem)
+            u["spill_bytes"] = max(u["spill_bytes"], e.spill_stores + e.spill_loads)
+    for kernel, b in budgets.KERNEL_BUDGETS.items():
+        u = used.get(kernel, {})
+        u["budget"] = {"registers": b.registers, "static_smem": b.static_smem,
+                       "dynamic_smem": dict(zip((f"bs{p['bs']}_d{p['d']}" for p in budgets.POINTS),
+                                                b.dynamic_smem))}
+        used[kernel] = u
+        log(f"[budget] {kernel} {json.dumps(u)}")
+    RECORD["budgets"] = {"kernels": used, "problems": problems}
+    if problems:
+        raise AssertionError(f"ptxas reports over their Hopper budgets: {problems}")
 
 
 # ---------------------------------------------------------------------------
@@ -907,11 +940,11 @@ def _kernel_solve(algo, rank):
     return res
 
 
-def _serve(gw, rank, delta):
-    """Drive a GraphServer through the waves, landing ``delta`` (warm) once
-    enough SSSP and PPR tickets have resolved for the solo checks while both
-    families still hold tickets. Returns the server, the tickets, the ids resolved before the
-    delta and the run's timings."""
+def _serve(gw, rank, delta, *, backend: str, bs: int, sweeps: int):
+    """Drive a GraphServer on ``backend`` through the waves, landing
+    ``delta`` (warm) once enough SSSP and PPR tickets have resolved for the
+    solo checks while both families still hold tickets. Returns the server,
+    the tickets, the ids resolved before the delta and the run's timings."""
     from repro_torch.engine import api
     from repro_torch.obs.trace import Tracer
     from repro_torch.serving import GraphServer
@@ -920,8 +953,8 @@ def _serve(gw, rank, delta):
     seeds = rng.choice(gw.n, size=SERVE_PPR, replace=False)
     sources = rng.choice(gw.n, size=SERVE_SSSP, replace=False)
     tracer = Tracer(ring=100_000)
-    srv = GraphServer(gw, rank=rank, slots=D, bs=BS, backend="kernel",
-                      sweeps_per_call=SWEEPS_PER_CALL, rounds_per_batch=8,
+    srv = GraphServer(gw, rank=rank, slots=D, bs=bs, backend=backend,
+                      sweeps_per_call=sweeps, rounds_per_batch=8,
                       push_threshold=0.05, transfer_guard="disallow",
                       device=DEVICE, trace=tracer)
     absorb = {"calls": 0, "s": 0.0}
@@ -978,28 +1011,23 @@ def _serve(gw, rank, delta):
     return srv, tickets, before, timing
 
 
-def phase_serving(ctx: dict) -> None:
-    """The serving path: ``GraphServer(backend="kernel")`` on the full-size
-    weighted graph under GoGraph, 128 one-seed PPR and 64 one-source SSSP
-    tickets in three waves, the reweight-10 delta landing warm mid-run (push
-    absorption on both families: the PPR tickets carry eps 1e-7, see
-    ``SERVE_PPR_EPS``), all under ``transfer_guard="disallow"``.
-    Tickets resolved before the delta are held against solo runs (SSSP
-    bitwise with equal rounds; PPR within atol 1e-5 and a round), tickets
-    in flight across it against cold solves on the new graph (SSSP bitwise;
-    PPR within atol 1e-4, rtol 1e-3). Then the two engines whose sums were
-    moved off atomics run twice each for the same bits: the priority engine
-    on the SSSP batch (eps 0) and the push engine's torch round on the PPR
-    batch."""
-    import dataclasses
-
-    from repro_torch import solve
+def _serving_checks(ctx: dict, tag: str, solve_one, *, backend: str, bs: int,
+                    sweeps: int) -> dict:
+    """One serving run on ``backend`` and its checks: ``GraphServer`` on the
+    full-size weighted graph under GoGraph, 128 one-seed PPR and 64
+    one-source SSSP tickets in three waves, the reweight-10 delta landing
+    warm mid-run (push absorption on both families: the PPR tickets carry
+    eps 1e-7, see ``SERVE_PPR_EPS``), all under
+    ``transfer_guard="disallow"``. Tickets resolved before the delta are
+    held against solo runs of ``solve_one`` (SSSP bitwise with equal rounds;
+    PPR within atol 1e-5 and a round), tickets in flight across it against
+    cold solves on the new graph (SSSP bitwise; PPR within atol 1e-4, rtol
+    1e-3), one resubmitted query against the cache's rule. Lines and
+    records are tagged ``tag``; returns the run's row."""
     from repro_torch.engine import algorithms as A
     from repro_torch.engine.harness import column_support
-    from repro_torch.engine.incremental import dense_residual
-    from repro_torch.engine.priority import run_priority_block
 
-    t_phase = time.perf_counter()
+    key = tag.replace("-", "_")
     gw, rank = ctx["gw"], ctx["rank"]
     delta = _reweight10(gw)
     gw_new = delta.apply(gw)
@@ -1008,7 +1036,8 @@ def phase_serving(ctx: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     for name in KERNELS:
         kmod(name).reset_launches()
-    srv, tickets, before, timing = _serve(gw, rank, delta)
+    srv, tickets, before, timing = _serve(gw, rank, delta, backend=backend, bs=bs,
+                                          sweeps=sweeps)
     counts = {name: kmod(name).launches for name in KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tracer = timing.pop("tracer")
@@ -1026,13 +1055,16 @@ def phase_serving(ctx: dict) -> None:
         "family_build_s": packs,
         "push_absorption_share": timing["push_absorption_s"] / timing["apply_delta_s"],
         "peak_gb": peak_gb, "launches": counts,
-        "resolved_before_delta": len(before),
+        "resolved_before_delta": len(before), "backend": backend, "bs": bs,
+        "sweeps_per_call": sweeps,
     }
-    log(f"[serving] {json.dumps(row)}")
-    RECORD["phases"]["serving"] = row
+    log(f"[{tag}] {json.dumps(row)}")
+    RECORD["phases"][key] = row
     bad = [t for t in tickets if t.status != "done" or not t.converged]
-    if bad or counts["gs_sweep"] <= 0 or timing["push_absorptions"] <= 0:
-        raise AssertionError(f"serving: {len(bad)} tickets unresolved or unconverged "
+    # the kernel backend sweeps through gs_sweep; the others launch no kernel
+    kernel_ok = counts["gs_sweep"] > 0 if backend == "kernel" else not any(counts.values())
+    if bad or not kernel_ok or timing["push_absorptions"] <= 0:
+        raise AssertionError(f"{tag}: {len(bad)} tickets unresolved or unconverged "
                              f"(first {bad[:1]}), launches {counts}, push absorptions "
                              f"{timing['push_absorptions']}")
 
@@ -1040,28 +1072,28 @@ def phase_serving(ctx: dict) -> None:
     sssp_pre = [t for t in tickets if t.algo == "sssp" and t.id in before]
     ppr_pre = [t for t in tickets if t.algo == "ppr" and t.id in before]
     sources = [t.params["source"] for t in sssp_pre]
-    batch = _kernel_solve(A.multi_source_sssp(gw, sources=sources), rank)
+    batch = solve_one(A.multi_source_sssp(gw, sources=sources), rank)
     sssp_ok = all(np.array_equal(t.result, batch.x[:, j]) and t.rounds == batch.col_rounds[j]
                   for j, t in enumerate(sssp_pre))
     solo_rows = []
     for t in sssp_pre[:SERVE_SSSP_SOLO]:
-        solo = _kernel_solve(A.make_sssp(gw, source=t.params["source"]), rank)
+        solo = solve_one(A.make_sssp(gw, source=t.params["source"]), rank)
         solo_rows.append({"algo": "sssp", "rounds": [t.rounds, int(solo.rounds)],
                           "ok": bool(np.array_equal(t.result, solo.x[:, 0])
                                      and t.rounds == solo.rounds)})
     for t in ppr_pre[:SERVE_PPR_SOLO]:
-        solo = _kernel_solve(A.personalized_pagerank(gw, **t.params), rank)
+        solo = solve_one(A.personalized_pagerank(gw, **t.params), rank)
         err = float(np.abs(t.result - solo.x[:, 0]).max())
         solo_rows.append({"algo": "ppr", "rounds": [t.rounds, int(solo.rounds)],
                           "max_abs_err": err,
                           "ok": bool(err <= 1e-5 and abs(t.rounds - solo.rounds) <= 1)})
     pre = {"sssp_tickets": len(sssp_pre), "sssp_vs_batch_bitwise": bool(sssp_ok),
            "ppr_tickets": len(ppr_pre), "solo": solo_rows}
-    log(f"[serving] resolved before the delta, against solo runs {json.dumps(pre)}")
-    RECORD["phases"]["serving_before_delta"] = pre
+    log(f"[{tag}] resolved before the delta, against solo runs {json.dumps(pre)}")
+    RECORD["phases"][f"{key}_before_delta"] = pre
     if not (sssp_ok and len(ppr_pre) >= SERVE_PPR_SOLO and len(sssp_pre) >= SERVE_SSSP_SOLO
             and all(r["ok"] for r in solo_rows)):
-        raise AssertionError(f"serving: tickets resolved before the delta differ from "
+        raise AssertionError(f"{tag}: tickets resolved before the delta differ from "
                              f"solo runs: {pre}")
     del batch
 
@@ -1069,13 +1101,13 @@ def phase_serving(ctx: dict) -> None:
     # cold solves on the new graph
     sssp_post = [t for t in tickets if t.algo == "sssp" and t.id not in before]
     ppr_post = [t for t in tickets if t.algo == "ppr" and t.id not in before]
-    cold = _kernel_solve(A.multi_source_sssp(
+    cold = solve_one(A.multi_source_sssp(
         gw_new, sources=[t.params["source"] for t in sssp_post]), rank)
     sssp_new_ok = all(np.array_equal(t.result, cold.x[:, j]) for j, t in enumerate(sssp_post))
     ppr_err, ppr_new_ok = 0.0, True
     for lo in range(0, len(ppr_post), D):
         part = ppr_post[lo:lo + D]
-        cold_p = _kernel_solve(A.personalized_pagerank(
+        cold_p = solve_one(A.personalized_pagerank(
             gw_new, seeds=[t.params["seeds"][0] for t in part], eps=SERVE_PPR_EPS), rank)
         for j, t in enumerate(part):
             ppr_err = max(ppr_err, float(np.abs(t.result - cold_p.x[:, j]).max()))
@@ -1083,10 +1115,10 @@ def phase_serving(ctx: dict) -> None:
     post = {"sssp_tickets": len(sssp_post), "sssp_bitwise": bool(sssp_new_ok),
             "ppr_tickets": len(ppr_post), "ppr_max_abs_err": ppr_err,
             "ppr_ok": ppr_new_ok}
-    log(f"[serving] in flight across the delta, against cold solves {json.dumps(post)}")
-    RECORD["phases"]["serving_after_delta"] = post
+    log(f"[{tag}] in flight across the delta, against cold solves {json.dumps(post)}")
+    RECORD["phases"][f"{key}_after_delta"] = post
     if not (sssp_new_ok and ppr_new_ok and sssp_post and ppr_post):
-        raise AssertionError(f"serving: tickets across the delta differ from cold "
+        raise AssertionError(f"{tag}: tickets across the delta differ from cold "
                              f"solves: {post}")
 
     # the cache after the delta: an SSSP query resolved before it is a miss
@@ -1095,23 +1127,41 @@ def phase_serving(ctx: dict) -> None:
     q0 = A.make_sssp(gw, source=t0.params["source"])
     support = column_support(q0.x0[:, 0], q0.c[:, 0], q0.fixed[:, 0], reduce="min",
                              c_fill=q0.c_pad_fill, x=t0.result)
-    meets = bool(set(np.nonzero(support)[0] // BS) & set(delta.touched_vertices() // BS))
+    meets = bool(set(np.nonzero(support)[0] // bs) & set(delta.touched_vertices() // bs))
     again = srv.submit("sssp", dict(t0.params))
     hit = again.status == "cached"
     srv.run()
     resub = {"source": int(t0.params["source"]), "support_meets_delta": meets,
              "cache": "hit" if hit else "miss",
-             "equals_cold": bool(np.array_equal(again.result, _kernel_solve(
+             "equals_cold": bool(np.array_equal(again.result, solve_one(
                  A.make_sssp(gw_new, source=t0.params["source"]), rank).x[:, 0]))}
-    log(f"[serving] resubmitted SSSP query after the delta: cache {resub['cache']} "
+    log(f"[{tag}] resubmitted SSSP query after the delta: cache {resub['cache']} "
         f"{json.dumps(resub)}")
-    RECORD["phases"]["serving_resubmit"] = resub
+    RECORD["phases"][f"{key}_resubmit"] = resub
     if hit == meets or not resub["equals_cold"]:
-        raise AssertionError(f"serving: the resubmitted query {resub}")
+        raise AssertionError(f"{tag}: the resubmitted query {resub}")
     del srv, tickets, cold
     torch.cuda.empty_cache()
+    return row
 
-    # 3. the priority engine's sums on the card: two runs, the same bits
+
+def phase_serving(ctx: dict) -> None:
+    """The serving path over the sweep kernel: ``GraphServer(backend=
+    "kernel", sweeps_per_call=8)`` through `_serving_checks`. Then the two
+    engines whose sums were moved off atomics run twice each for the same
+    bits: the priority engine on the SSSP batch (eps 0) and the push
+    engine's torch round on the PPR batch."""
+    import dataclasses
+
+    from repro_torch import solve
+    from repro_torch.engine.incremental import dense_residual
+    from repro_torch.engine.priority import run_priority_block
+
+    t_phase = time.perf_counter()
+    _serving_checks(ctx, "serving", _kernel_solve, backend="kernel", bs=BS,
+                    sweeps=SWEEPS_PER_CALL)
+
+    # the priority engine's sums on the card: two runs, the same bits
     sssp0 = dataclasses.replace(ctx["sssp"], eps=0.0)
     runs = [run_priority_block(sssp0, bs=PRIORITY_BS, select_frac=PRIORITY_FRAC,
                                device=DEVICE) for _ in range(2)]
@@ -1119,7 +1169,7 @@ def phase_serving(ctx: dict) -> None:
             "bitwise": bool(runs[0].rounds == runs[1].rounds
                             and runs[0].x.tobytes() == runs[1].x.tobytes()),
             "equals_kernel": bool(np.array_equal(runs[0].x, ctx["sssp_x"]))}
-    # 4. the push engine's torch round on the card: two runs, the same bits
+    # the push engine's torch round on the card: two runs, the same bits
     ppr = ctx["ppr"]
     pushes, push_s = [], []
     for _ in range(2):
@@ -1140,6 +1190,304 @@ def phase_serving(ctx: dict) -> None:
         raise AssertionError(f"repeated runs differ or miss their bound: {repeat}")
     RECORD["phases"]["serving"]["phase_s"] = time.perf_counter() - t_phase
     log(f"[serving] phase {RECORD['phases']['serving']['phase_s']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the distributed engine: one NCCL rank, four gloo ranks on the one card,
+# and the serving path over it
+# ---------------------------------------------------------------------------
+
+DIST_BS = 256      # run_distributed's default block size
+DIST_RANKS = 4
+DIST_TIMEOUT_S = 120   # a rank that leaves the loop early fails the run
+DIST_CASES = ("sssp64", "ppr64", "pagerank_gograph", "pagerank_identity")
+
+
+def _scratch() -> str:
+    """``build/`` of the checkout, for the rank processes' stores and
+    instances (the checkout is the only place the script writes)."""
+    path = os.path.join(ROOT, "build")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _save_instance(path: str, algo) -> None:
+    """An instance's arrays and scalars in one npz, for a rank process."""
+    from repro_torch.interop import algo_fields
+
+    f = algo_fields(algo)
+    meta = {k: f[k] for k in ("name", "n", "combine", "residual", "eps",
+                              "monotone_dir", "semiring")}
+    np.savez(path, **{k: f[k] for k in ("src", "dst", "w", "x0", "c", "fixed")},
+             meta=json.dumps(meta))
+
+
+def _load_instance(path: str):
+    from repro_torch.interop import algo_from_arrays
+
+    z = np.load(path)
+    fields = {k: z[k] for k in ("src", "dst", "w", "x0", "c", "fixed")}
+    return algo_from_arrays({**fields, **json.loads(str(z["meta"]))})
+
+
+def _dist_solve(algo, rank, mesh=None):
+    """One solve through the distributed engine at run_distributed's block
+    size, ``x`` always (n, d); ``mesh=None`` runs on the default process
+    group's world."""
+    from repro_torch import solve
+
+    res = solve(algo, engine="distributed", mesh=mesh, bs=DIST_BS, rank=rank,
+                max_iters=2000, device=DEVICE)
+    res.x = np.asarray(res.x).reshape(algo.n, -1)
+    return res
+
+
+def _timed(fn) -> tuple:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _profile_supersteps(algo, label: str, steps: int = 3) -> dict:
+    """Where a superstep's time goes: ``steps`` supersteps of ``algo`` (one
+    rank of the default process group, `DistContext.run`) under
+    ``torch.profiler`` after one warm-up superstep: wall ms per superstep,
+    the device's busy ms (kernel time summed over ops) and idle share, and
+    the ops that take the most host and device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import harness
+    from repro_torch.engine.distributed import DistContext
+
+    dc = DistContext(algo, DIST_BS, device=DEVICE)
+    ops = [harness.to_device(a, DEVICE) for a in (dc.x0, dc.c, dc.fixed)]
+    dc.run(ops[0].clone(), *ops, max_iters=1)  # warm-up
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        dc.run(ops[0].clone(), *ops, max_iters=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    rows = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    # the device's own events (kernels, copies); a host op's device time
+    # repeats its kernels' and is not summed again
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    host_ops = [e for e in rows if e.device_type == DeviceType.CPU]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    host = sorted(host_ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+    out = {
+        "label": label, "supersteps": steps, "blocks": dc.nb,
+        "wall_ms_per_superstep": 1e3 * wall / steps,
+        "device_busy_ms_per_superstep": busy_ms / steps,
+        "device_idle_share": 1.0 - busy_ms / (1e3 * wall),
+        "launches_per_superstep": sum(e.count for e in kernels) / steps,
+        "top_device_ops": [{"op": e.key[:96], "calls": e.count,
+                            "ms_per_superstep": dev_us(e) / 1e3 / steps} for e in top],
+        "top_host_ops": [{"op": e.key, "calls": e.count,
+                          "self_host_ms_per_superstep": e.self_cpu_time_total / 1e3 / steps}
+                         for e in host],
+    }
+    log(f"[distributed] superstep profile {json.dumps(out)}")
+    RECORD["phases"][f"profile_{label}"] = out
+    return out
+
+
+def dist_rank_main(rank: int, tmp: str) -> int:
+    """One of DIST_RANKS rank processes on the one card over gloo: every
+    instance of DIST_CASES (relabeled already) through
+    ``solve(engine="distributed")`` on a 1-D mesh of "cuda" devices; the
+    states, rounds and times into ``rank<k>.npz``."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import solve
+
+    torch.cuda.set_device(0)  # every rank on the one card
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), DIST_RANKS),
+        rank=rank, world_size=DIST_RANKS,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(DEVICE, (DIST_RANKS,), mesh_dim_names=("data",))
+        out = {}
+        for label in DIST_CASES:
+            algo = _load_instance(os.path.join(tmp, f"{label}.npz"))
+            dist.barrier()
+            res, wall, peak = _timed(lambda: solve(
+                algo, engine="distributed", mesh=mesh, bs=DIST_BS, max_iters=2000,
+                device=DEVICE))
+            out.update({f"{label}.x": np.asarray(res.x), f"{label}.rounds": res.rounds,
+                        f"{label}.col_rounds": res.col_rounds,
+                        f"{label}.converged": res.converged, f"{label}.wall_s": wall,
+                        f"{label}.peak_gb": peak})
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _four_ranks(instances: dict) -> list[dict]:
+    """Run DIST_CASES on DIST_RANKS gloo rank processes sharing the card;
+    every rank's outputs."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=_scratch()) as tmp:
+        for label, algo in instances.items():
+            _save_instance(os.path.join(tmp, f"{label}.npz"), algo)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank", str(k), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for k in range(DIST_RANKS)]
+        try:
+            outs = [p.communicate(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for k, (p, (_, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"gloo rank {k} exited {p.returncode}:\n{err[-4000:]}")
+        return [dict(np.load(os.path.join(tmp, f"rank{k}.npz"))) for k in range(DIST_RANKS)]
+
+
+def phase_distributed(ctx: dict) -> None:
+    """The distributed engine on the main path's graph under GoGraph, d = 64,
+    bs 256 (run_distributed's default).
+
+    * One NCCL rank (``init_process_group("nccl", world_size=1)`` through a
+      FileStore, a 1-D "cuda" mesh): the PPR and SSSP batches through
+      ``solve(engine="distributed", mesh=...)``, each bitwise equal to
+      ``solve(engine="async_block", backend="torch", bs=256)`` in state,
+      rounds and per-column rounds; global PageRank under GoGraph and the
+      default order; three supersteps of each batch under
+      ``torch.profiler`` (`_profile_supersteps`).
+    * Four gloo ranks on the one card (spawned processes; NCCL refuses two
+      ranks on one device): SSSP bitwise equal to the one-rank state with
+      rounds in [one-rank rounds, 3x + 5] (the reference's bound); PPR within
+      atol 1e-4, rtol 1e-3 of the one-rank state (both stop within eps of
+      the fixpoint, by other paths); every rank bitwise equal to rank 0;
+      global PageRank's rounds under GoGraph and the default order, recorded.
+    * Serving over the distributed backend on the one-rank world:
+      `_serving_checks` with ``GraphServer(backend="distributed", bs=256,
+      sweeps_per_call=1)``.
+    """
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import solve
+
+    t_phase = time.perf_counter()
+    rank = ctx["rank"]
+    cases = {"sssp64": ctx["sssp"], "ppr64": ctx["ppr"]}
+    for name in KERNELS:
+        kmod(name).reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(0)
+    store_dir = tempfile.TemporaryDirectory(dir=_scratch())
+    # NCCL on the card (a CPU rehearsal has only gloo)
+    dist.init_process_group(
+        "nccl" if DEVICE == "cuda" else "gloo",
+        store=dist.FileStore(os.path.join(store_dir.name, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(DEVICE, (1,), mesh_dim_names=("data",))
+        one = {}
+        for label, algo in cases.items():
+            res, wall, peak = _timed(lambda: _dist_solve(algo, rank, mesh))
+            ref, ref_wall, _ = _timed(lambda: solve(
+                algo, engine="async_block", backend="torch", bs=DIST_BS, rank=rank,
+                max_iters=2000, device=DEVICE))
+            same = bool(np.array_equal(res.x, np.asarray(ref.x).reshape(res.x.shape))
+                        and res.rounds == ref.rounds
+                        and np.array_equal(res.col_rounds, ref.col_rounds))
+            row = {"label": f"{label}_1rank_nccl", "rounds": int(res.rounds),
+                   "converged": bool(res.converged), "wall_s": wall,
+                   "ms_per_superstep": 1e3 * wall / max(1, res.rounds), "peak_gb": peak,
+                   "async_block_torch": {"rounds": int(ref.rounds), "wall_s": ref_wall},
+                   "bitwise_equal_async_block_torch": same}
+            log(f"[distributed] {json.dumps(row)}")
+            RECORD["phases"][row["label"]] = row
+            if not (same and res.converged):
+                raise AssertionError(f"one NCCL rank against the torch backend: {row}")
+            one[label] = res
+        pr_rows = {}
+        for order, r in (("gograph", rank), ("identity", None)):
+            res, wall, _ = _timed(lambda: _dist_solve(ctx["pr"], r, mesh))
+            pr_rows[order] = {"rounds": int(res.rounds), "wall_s": wall,
+                              "ms_per_superstep": 1e3 * wall / max(1, res.rounds)}
+            if not res.converged:
+                raise AssertionError(f"PageRank {order} on one rank did not converge")
+        log(f"[distributed] pagerank, one NCCL rank {json.dumps(pr_rows)}")
+        for label in ("ppr64", "sssp64"):
+            _profile_supersteps(cases[label].relabel(rank), label)
+
+        # four gloo ranks on the one card
+        t0 = time.perf_counter()
+        ranks = _four_ranks({"sssp64": ctx["sssp"].relabel(rank),
+                             "ppr64": ctx["ppr"].relabel(rank),
+                             "pagerank_gograph": ctx["pr"].relabel(rank),
+                             "pagerank_identity": ctx["pr"]})
+        four_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        agree = all(sorted(rk) == sorted(r0) and all(np.array_equal(rk[k], r0[k]) for k in r0
+                                                     if not k.endswith(("wall_s", "peak_gb")))
+                    for rk in ranks[1:])
+        sssp4 = r0["sssp64.x"].reshape(ctx["g"].n, -1)[rank]
+        ppr4 = r0["ppr64.x"].reshape(ctx["g"].n, -1)[rank]
+        r1 = {k: int(one[k].rounds) for k in one}
+        r4 = {k: int(r0[f"{k}.rounds"]) for k in DIST_CASES}
+        four = {
+            "ranks": DIST_RANKS, "backend": "gloo", "seconds_with_spawn": four_s,
+            "rounds": r4, "rounds_one_rank": {**r1, "pagerank_gograph": pr_rows["gograph"]["rounds"],
+                                              "pagerank_identity": pr_rows["identity"]["rounds"]},
+            "wall_s": {k: float(r0[f"{k}.wall_s"]) for k in DIST_CASES},
+            "ms_per_superstep": {k: 1e3 * float(r0[f"{k}.wall_s"]) / max(1, r4[k])
+                                 for k in DIST_CASES},
+            "peak_gb_rank0": {k: float(r0[f"{k}.peak_gb"]) for k in DIST_CASES},
+            "converged": {k: bool(r0[f"{k}.converged"]) for k in DIST_CASES},
+            "every_rank_equals_rank0": agree,
+            "sssp_bitwise_one_rank": bool(np.array_equal(sssp4, one["sssp64"].x)),
+            "sssp_rounds_in_bound": r1["sssp64"] <= r4["sssp64"] <= 3 * r1["sssp64"] + 5,
+            "ppr_max_abs_diff_one_rank": float(np.abs(ppr4 - one["ppr64"].x).max()),
+            "ppr_close_one_rank": bool(np.allclose(ppr4, one["ppr64"].x, atol=1e-4,
+                                                   rtol=1e-3)),
+        }
+        log(f"[distributed] four gloo ranks on one card {json.dumps(four)}")
+        RECORD["phases"]["distributed_4rank_gloo"] = four
+        RECORD["phases"]["distributed_pagerank_1rank"] = pr_rows
+        if not (agree and all(four["converged"].values()) and four["sssp_bitwise_one_rank"]
+                and four["sssp_rounds_in_bound"] and four["ppr_close_one_rank"]):
+            raise AssertionError(f"four gloo ranks: {four}")
+        counts = {name: kmod(name).launches for name in KERNELS}
+        if any(counts.values()):
+            raise AssertionError(f"the distributed engine launched a kernel: {counts}")
+        del one, ranks
+        torch.cuda.empty_cache()
+
+        # the serving path over the distributed backend, one NCCL rank
+        _serving_checks(ctx, "serving-dist", lambda algo, r: _dist_solve(algo, r),
+                        backend="distributed", bs=DIST_BS, sweeps=1)
+    finally:
+        dist.destroy_process_group()
+        store_dir.cleanup()
+    RECORD["phases"]["distributed_phase_s"] = time.perf_counter() - t_phase
+    log(f"[distributed] phase {RECORD['phases']['distributed_phase_s']:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1637,6 +1985,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dist-rank"]:
+        return dist_rank_main(int(sys.argv[2]), sys.argv[3])
     t0 = time.perf_counter()
     _, kind = phase_env()
     phase_build()
@@ -1645,6 +1995,7 @@ def main() -> int:
         return 0
     entries, ctx = phase_main()
     phase_serving(ctx)
+    phase_distributed(ctx)
     entries += phase_push(ctx)
     phase_fig8(ctx)
     phase_orders(ctx)

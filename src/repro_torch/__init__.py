@@ -3,9 +3,10 @@
 The same surface as ``repro`` (see its ``__init__``) for what the port
 provides so far: :func:`solve` / :class:`EngineOptions` on the synchronous
 Jacobi engine (``engine="sync"``), the block Gauss–Seidel engine
-(``engine="async_block"``), the residual-push engine
-(``engine="push"``) and the frontier-size router (``engine="auto"``), with
-backends ``"torch"`` and ``"kernel"`` and ``device="cuda"`` unless asked
+(``engine="async_block"``), the distributed engine over the ranks of a
+``torch.distributed`` device mesh (``engine="distributed"``), the
+residual-push engine (``engine="push"``) and the frontier-size router
+(``engine="auto"``), with backends ``"torch"`` and ``"kernel"`` and ``device="cuda"`` unless asked
 otherwise; :func:`run_incremental` with :class:`GraphDelta` for evolving
 graphs; the algorithm constructors; and :class:`Graph`. GoGraph ordering
 and the competitor orders of the paper's evaluation live in
@@ -35,6 +36,7 @@ __all__ = [
     # engine shims (legacy spellings; thin wrappers over solve())
     "run_sync",
     "run_async_block",
+    "run_distributed",
     "run_push",
     "estimate_frontier_fraction",
     # incremental
@@ -52,7 +54,8 @@ _ENGINE = {
     "solve", "EngineOptions", "EngineOptionsError", "EngineUnsupportedError",
     "get_algorithm", "ALGORITHMS", "AlgoInstance", "personalized_pagerank",
     "multi_source_sssp", "make_personalized_pagerank",
-    "make_multi_source_sssp", "remake", "run_sync", "run_async_block", "run_push",
+    "make_multi_source_sssp", "remake", "run_sync", "run_async_block",
+    "run_distributed", "run_push",
     "estimate_frontier_fraction", "run_incremental", "warm_state",
     "permute_state",
 }

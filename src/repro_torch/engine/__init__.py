@@ -1,6 +1,6 @@
 """Iterative engines of the port: algorithm specs, round loops, the
-synchronous (Jacobi), block Gauss–Seidel, priority-scheduled and
-residual-push engines, incremental delta absorption and the
+synchronous (Jacobi), block Gauss–Seidel, distributed (blocks sharded
+across ranks), priority-scheduled and residual-push engines, incremental delta absorption and the
 :func:`solve` entry point.
 
 Names resolve lazily so that ``repro_torch.engine.algorithms`` can be
@@ -24,6 +24,7 @@ _NAMES = {
     "AsyncBlockSession": "async_block",
     "BatchReport": "async_block",
     "run_async_block": "async_block",
+    "run_distributed": "distributed",
     "run_priority_block": "priority",
     "run_sync": "sync",
     "RunResult": "convergence",

@@ -8,8 +8,7 @@ pass, one exception family:
   meaningless option combination.
 * :class:`EngineUnsupportedError` (an :class:`EngineOptionsError` and a
   ``NotImplementedError``) — a meaningful combination this package does not
-  implement, including the engine the port has not reached yet
-  (``distributed``).
+  implement.
 
 Backends: ``"torch"`` (torch ops, the reference's ``"jax"``) and
 ``"kernel"`` (the hand-written CUDA kernel, the reference's ``"pallas"``).
@@ -32,11 +31,6 @@ if TYPE_CHECKING:
 ENGINES = ("sync", "async_block", "distributed", "push")
 BACKENDS = ("torch", "kernel")
 
-# engines of the reference the port has not reached, and where they are queued
-_NOT_PORTED = {
-    "distributed": "ROADMAP §A3 (engine/distributed.py)",
-}
-
 
 class EngineOptionsError(ValueError):
     """An :class:`EngineOptions` combination the engines reject."""
@@ -55,6 +49,10 @@ class EngineOptions:
 
     device : torch device the solve runs on (default ``"cuda"``); ``"cpu"``
         runs torch ops and, on the kernel backend, the kernel's plain version.
+    mesh : for ``engine="distributed"``, a 1-D
+        ``torch.distributed.device_mesh.DeviceMesh`` of ``device``'s type
+        with a dimension named ``axis`` (None: the default process group's
+        world, or one rank when ``torch.distributed`` is not initialized).
     """
 
     x_init: Optional[np.ndarray] = None
@@ -117,6 +115,10 @@ def validate_options(
             "mesh names the device mesh for engine='distributed'; "
             f"engine={engine!r} runs on one device"
         )
+    if o.mesh is not None:
+        from repro_torch.engine.distributed import check_mesh
+
+        check_mesh(o.mesh, o.axis, o.device)
     if o.transfer_guard not in (None, "allow", "log", "disallow"):
         raise EngineOptionsError(
             f"transfer_guard must be None, 'allow', 'log' or 'disallow', "
@@ -234,13 +236,13 @@ def solve(
     """Converge ``algo`` with the chosen engine — the single entry path.
 
     ``engine``: ``"sync"`` (Jacobi rounds, torch ops only),
-    ``"async_block"`` (block Gauss–Seidel), ``"push"`` (vertex-granular
-    residual push, `engine.push`) or ``"auto"`` (the frontier-size router:
-    estimate the initial pending fraction with
-    `engine.push.estimate_frontier_fraction` and pick ``"push"`` below
-    ``options.push_threshold``, ``"async_block"`` above or whenever the
-    semiring has no push formulation). ``"distributed"`` raises
-    :class:`EngineUnsupportedError` naming the ROADMAP item that ports it.
+    ``"async_block"`` (block Gauss–Seidel), ``"distributed"`` (blocks
+    sharded across the ranks of ``options.mesh``, `engine.distributed`),
+    ``"push"`` (vertex-granular residual push, `engine.push`) or
+    ``"auto"`` (the frontier-size router: estimate the initial pending
+    fraction with `engine.push.estimate_frontier_fraction` and pick
+    ``"push"`` below ``options.push_threshold``, ``"async_block"`` above or
+    whenever the semiring has no push formulation).
     ``options`` is an :class:`EngineOptions`; keyword ``overrides`` are
     applied on top. ``rank=`` runs the solve relabeled and returns the
     state in the caller's id space.
@@ -273,10 +275,6 @@ def solve(
         else:
             engine = "async_block"
     validate_options(engine, o, algo)
-    if engine in _NOT_PORTED:
-        raise EngineUnsupportedError(
-            f"engine={engine!r} is not ported to repro_torch yet: {_NOT_PORTED[engine]}"
-        )
     device = torch.device(o.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -299,11 +297,11 @@ def solve(
             frontier=None if o.frontier is None
             else permute_state(np.asarray(o.frontier), rank),
         )
-    from repro_torch.engine import async_block, push, sync
+    from repro_torch.engine import async_block, distributed, push, sync
     from repro_torch.obs.trace import tspan
 
     impl = {"sync": sync._solve, "async_block": async_block._solve,
-            "push": push._solve}[engine]
+            "distributed": distributed._solve, "push": push._solve}[engine]
     with tspan(o.trace, "solve", algo=algo.name, engine=engine,
                backend=o.backend, n=algo.n, d=algo.d) as sp:
         with _transfer_guard(o.transfer_guard, device):

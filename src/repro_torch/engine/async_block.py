@@ -216,7 +216,9 @@ class AsyncBlockSession:
     bitmap carried from batch to batch and across swaps: a swapped-in column
     ORs the depth-1 out-closure of its support into it). The kernel updates
     the state in place, so :attr:`x` is always the state the last launch
-    returned. ``"distributed"`` is not ported yet.
+    returned. ``"distributed"`` backs the family with the superstep of
+    `engine.distributed.DistContext` (``mesh`` / ``axis`` select the ranks;
+    the state has the context's ``npad2`` rows).
 
     A column's trajectory from swap-in to convergence is what a solo
     `run_async_block` of that query produces: min/max columns bitwise, sum
@@ -227,22 +229,16 @@ class AsyncBlockSession:
     def __init__(
         self, algo: AlgoInstance, bs: int = 256, inner: int = 1,
         backend: str = "torch", sweeps_per_call: int = 1,
+        mesh=None, axis: str = "data",
         trace=None, trace_attrs: dict | None = None, device: str = "cuda",
     ):
-        from repro_torch.engine.api import (
-            EngineOptions,
-            EngineUnsupportedError,
-            validate_options,
-        )
+        from repro_torch.engine.api import EngineOptions, validate_options
 
-        if backend == "distributed":
-            raise EngineUnsupportedError(
-                "AsyncBlockSession(backend='distributed') is not ported to "
-                "repro_torch yet: ROADMAP §A3 (engine/distributed.py)"
-            )
-        validate_options("async_block", EngineOptions(
-            backend=backend, bs=bs, inner=inner,
-            sweeps_per_call=sweeps_per_call, trace=trace, device=device,
+        engine = "distributed" if backend == "distributed" else "async_block"
+        validate_options(engine, EngineOptions(
+            backend="torch" if backend == "distributed" else backend,
+            bs=bs, inner=inner, sweeps_per_call=sweeps_per_call,
+            mesh=mesh, axis=axis, trace=trace, device=device,
         ), algo)
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
@@ -269,6 +265,16 @@ class AsyncBlockSession:
                 self.x0 = harness.to_device(x0, dev)
                 self.c = harness.to_device(c, dev)
                 self.fixed = harness.to_device(fixed, dev)
+                self.x = self.x0.clone()
+            elif backend == "distributed":
+                from repro_torch.engine.distributed import DistContext
+
+                self._dist = DistContext(algo, bs, mesh=mesh, axis=axis,
+                                         inner=inner, device=device)
+                self.nb = self._dist.nb
+                self.x0 = harness.to_device(self._dist.x0, dev)
+                self.c = harness.to_device(self._dist.c, dev)
+                self.fixed = harness.to_device(self._dist.fixed, dev)
                 self.x = self.x0.clone()
             else:
                 from repro_torch.kernels.ops import pack_algorithm
@@ -362,6 +368,10 @@ class AsyncBlockSession:
                 comb=a.combine, res_kind=a.residual, eps=a.eps,
                 max_iters=max_iters, identity=a.semiring.identity,
                 inner=self.inner, extrapolate_every=0,
+            )
+        elif self.backend == "distributed":
+            out = self._dist.run(
+                self.x, self.x0, self.c, self.fixed, max_iters=max_iters,
             )
         elif self.sweeps_per_call == 1:
             from repro_torch.kernels.gs_sweep import gs_sweep

@@ -40,11 +40,17 @@ def segment_reduce_sorted(
     segment is reduced in message order, so a sum is the same on every run,
     on the card too (a scatter that adds with atomics sums in a varying
     order, and PageRank's largest states then move by an ulp, more than
-    eps, every round)."""
+    eps, every round).
+
+    Callers build ``lengths`` by counting (non-negative, summing to
+    ``len(msgs)``). On the card the op's own check of that reads the
+    lengths back to the host, a synchronisation per call, so it is skipped
+    there (``unsafe``); on the CPU it stays, and the CPU tests check every
+    caller's lengths."""
     if kind not in _SEGMENT_REDUCE:
         raise ValueError(kind)
     return torch.segment_reduce(msgs, _SEGMENT_REDUCE[kind], lengths=lengths, axis=0,
-                                initial=identity)
+                                initial=identity, unsafe=msgs.is_cuda)
 
 
 def combine(

@@ -1,6 +1,6 @@
 """Block packing of a (reordered) graph for the block engines and the kernel.
 
-Counterpart of ``repro.graphs.blocked``. Two packings:
+Counterpart of ``repro.graphs.blocked``. Three packings:
 
 * :class:`BlockedInEdges` — per-destination-block padded in-edge lists, used
   by the torch-ops block Gauss–Seidel engine (`engine/async_block.py`).
@@ -11,14 +11,19 @@ Counterpart of ``repro.graphs.blocked``. Two packings:
   CSR-of-tiles form (``tiles[nnz_blocks, bs, bs]`` + ``rowptr[nb+1]`` /
   ``tilecols[nnz_blocks]``).
 
+* :class:`BSRMatrix` — the dense-padded block-sparse rows the flat layout
+  replaced (every row-block pays for the densest one's ``k_max`` tiles),
+  kept as the locality benchmark's baseline and for its ``stats()``.
+
 :func:`block_dependency_structure` is the tile structure alone, without
 payloads: the skeleton the priority engine schedules over.
 
-The index arrays stay host numpy. :func:`pack_bsr_flat` scatters the tile
-payload with torch on the requested device: at a graph of 10^5 vertices the
-tiles are several GB, so building them where they are used saves the host
-copy and the transfer. On the CPU the tiles equal the reference packer's
-byte for byte.
+The index arrays stay host numpy. :func:`pack_bsr_flat` and
+:func:`pack_bsr` scatter the tile payload with torch on the requested device
+(``"cuda"`` unless asked otherwise): at a graph of 10^5 vertices the tiles
+are several GB, so building them where they are used saves the host copy
+and the transfer. On the CPU the tiles equal the reference packers' byte for
+byte.
 """
 from __future__ import annotations
 
@@ -148,8 +153,59 @@ class FlatBSRMatrix:
         }
 
 
+@dataclasses.dataclass
+class BSRMatrix:
+    """Dense-padded block-sparse rows (legacy layout, benchmark baseline).
+
+    tiles[i, k] has layout (dst_local, src_local): row r of tile (i,k) holds
+    the weights of edges into vertex i*bs+r from vertices cols[i,k]*bs + c.
+    Padding tiles point at column-block 0 with `fill` values so semiring
+    reduction ignores them (0 for plus_times, +inf for min_plus). Every
+    row-block pays for the global k_max; `stats()['padding_waste']` is the
+    fraction of tile memory that padding is. ``tiles`` is a torch tensor on
+    the device it was packed for; ``cols`` and ``colmask`` are host numpy.
+    """
+
+    bs: int
+    n: int
+    cols: np.ndarray      # int32[nb, k_max]
+    colmask: np.ndarray   # bool[nb, k_max]
+    tiles: torch.Tensor   # float32[nb, k_max, bs, bs]
+    fill: float
+
+    @property
+    def nb(self) -> int:
+        return self.cols.shape[0]
+
+    @property
+    def k_max(self) -> int:
+        return self.cols.shape[1]
+
+    def stats(self) -> dict:
+        """Locality proxies: tile counts per row-block, diagonal share,
+        bytes and padding."""
+        nnz_blocks = int(self.colmask.sum())
+        per_row = self.colmask.sum(axis=1)
+        diag = int(np.count_nonzero(
+            np.any((self.cols == np.arange(self.nb)[:, None]) & self.colmask,
+                   axis=1)
+        ))
+        return {
+            "nb": self.nb,
+            "k_max": self.k_max,
+            "nnz_blocks": nnz_blocks,
+            "mean_colblocks_per_rowblock": float(per_row.mean()) if self.nb else 0.0,
+            "max_colblocks_per_rowblock": int(per_row.max()) if self.nb else 0,
+            "diag_fraction": diag / max(1, self.nb),
+            "tile_bytes": self.tiles.numel() * self.tiles.element_size(),
+            "padding_waste": 1.0 - nnz_blocks / max(1, self.nb * self.k_max),
+        }
+
+
 def _sorted_tile_edges(g: Graph, bs: int):
-    """Edges sorted by (dst block, src block) with their tile grouping."""
+    """Edges sorted by (dst block, src block) with their tile grouping,
+    shared by the dense and flat packers so both layouts hold the same
+    tiles."""
     nb = num_blocks(g.n, bs)
     bi = (g.dst // bs).astype(np.int64)  # row (dst) block
     bk = (g.src // bs).astype(np.int64)  # col (src) block
@@ -163,8 +219,43 @@ def _sorted_tile_edges(g: Graph, bs: int):
     return nb, src_s, dst_s, w_s, tile_of_edge, rows, cols_of
 
 
+def _scatter_tiles(shape, flat: np.ndarray, w: np.ndarray, fill: float,
+                   device) -> torch.Tensor:
+    """A ``shape`` tile payload at ``fill`` on ``device``, edge weights ``w``
+    scattered to flat positions ``flat``."""
+    tiles = torch.full(shape, fill, dtype=torch.float32, device=device)
+    tiles.view(-1)[torch.from_numpy(flat).to(device)] = torch.from_numpy(
+        np.ascontiguousarray(w, dtype=np.float32)
+    ).to(device)
+    return tiles
+
+
+def pack_bsr(
+    g: Graph, bs: int, fill: float = 0.0, device: str | torch.device = "cuda"
+) -> BSRMatrix:
+    """Pack the in-adjacency into the dense-padded layout; the payload is
+    filled and scattered on ``device``, as :func:`pack_bsr_flat` does."""
+    nb, src_s, dst_s, w_s, tile_of_edge, rows, cols_of = _sorted_tile_edges(g, bs)
+    per_row = np.bincount(rows, minlength=nb)
+    k_max = max(1, int(per_row.max()) if nb else 1)
+    cols = np.zeros((nb, k_max), dtype=np.int32)
+    colmask = np.zeros((nb, k_max), dtype=bool)
+    # tiles arrive sorted by (row, col), so a tile's k-slot is its index
+    # minus its row's first tile index
+    row_start = np.zeros(nb + 1, dtype=np.int64)
+    np.cumsum(per_row, out=row_start[1:])
+    slot = np.arange(len(rows), dtype=np.int64) - row_start[rows]
+    cols[rows, slot] = cols_of
+    colmask[rows, slot] = True
+    er = rows[tile_of_edge]       # per-edge destination block
+    ec = cols_of[tile_of_edge]    # per-edge source block
+    flat = ((er * k_max + slot[tile_of_edge]) * bs + (dst_s - er * bs)) * bs + (src_s - ec * bs)
+    tiles = _scatter_tiles((nb, k_max, bs, bs), flat, w_s, fill, device)
+    return BSRMatrix(bs=bs, n=g.n, cols=cols, colmask=colmask, tiles=tiles, fill=fill)
+
+
 def pack_bsr_flat(
-    g: Graph, bs: int, fill: float = 0.0, device: str | torch.device = "cpu"
+    g: Graph, bs: int, fill: float = 0.0, device: str | torch.device = "cuda"
 ) -> FlatBSRMatrix:
     """Pack the in-adjacency into the ragged flat layout the kernel walks.
 
@@ -181,10 +272,7 @@ def pack_bsr_flat(
     er = rows[tile_of_edge]
     ec = cols_of[tile_of_edge]
     flat = (tile_of_edge.astype(np.int64) * bs + (dst_s - er * bs)) * bs + (src_s - ec * bs)
-    tiles = torch.full((max(1, nnz), bs, bs), fill, dtype=torch.float32, device=device)
-    tiles.view(-1)[torch.from_numpy(flat).to(device)] = torch.from_numpy(
-        np.ascontiguousarray(w_s, dtype=np.float32)
-    ).to(device)
+    tiles = _scatter_tiles((max(1, nnz), bs, bs), flat, w_s, fill, device)
     tilecols = cols_of.astype(np.int32) if nnz else np.zeros(1, np.int32)
     tilerows = rows.astype(np.int32) if nnz else np.zeros(1, np.int32)
     return FlatBSRMatrix(

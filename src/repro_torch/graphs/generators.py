@@ -160,3 +160,21 @@ def scrambled(g: Graph, seed: int = 0) -> Graph:
     rng = np.random.default_rng(seed)
     rank = rng.permutation(g.n).astype(np.int32)
     return g.relabel(rank)
+
+
+# Registry used by benchmarks / examples (the reference's, same names and
+# calls). Sizes chosen so the full paper benchmark suite finishes on a single
+# CPU core; the generators scale to arbitrarily large graphs.
+DATASETS = {
+    # name: thunk  (named after the paper dataset they stand in for)
+    "ic-like": lambda: powerlaw_cluster(8_000, 6, p=0.5, seed=1),       # indochina-ish
+    "sk-like": lambda: powerlaw_cluster(20_000, 6, p=0.4, seed=2),      # sk-2005-ish
+    "gl-like": lambda: barabasi_albert(30_000, 5, seed=3),              # google-ish
+    "wk-like": lambda: barabasi_albert(50_000, 3, seed=4),              # wiki-ish
+    "cp-like": lambda: erdos_renyi(40_000, 5.0, seed=5),                # cit-patents-ish
+    "lj-like": lambda: community_graph(40_000, 200, 7.0, 0.85, seed=6), # livejournal-ish
+}
+
+
+def load_dataset(name: str) -> Graph:
+    return DATASETS[name]()

@@ -5,7 +5,10 @@ shared library with a plain C interface, loaded with ``ctypes``. The library
 lands in ``build/repro_torch/`` at the checkout root (a per-user cache for an
 installed package, see `_build_dir`), named by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one loads
-at once. Nothing here runs at import time.
+at once. The compiler's resource report (``-Xptxas -v``) is kept beside the
+library as ``lib<name>_<key>.ptxas.txt`` and read back on a cached load, so
+`kernels.budgets` always has a report to check. Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ NVCC_FLAGS = (
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build wall time (0.0 when loaded from the cache),
-#          "ptxas": the compiler's resource report}
+#          "ptxas": the compiler's resource report ("" when a cached build
+#          has none), "path": the library}
 BUILD_INFO: dict[str, dict] = {}
 
 
@@ -65,6 +69,7 @@ def load(name: str) -> ctypes.CDLL:
     out_dir = BUILD_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / f"lib{name}_{key}.so"
+    report = out_dir / f"lib{name}_{key}.ptxas.txt"
     info = {"seconds": 0.0, "ptxas": "", "path": str(lib_path)}
     if not lib_path.exists():
         t0 = time.perf_counter()
@@ -78,9 +83,15 @@ def load(name: str) -> ctypes.CDLL:
                 f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
+        # the report first: a library on disk always has its report beside it
+        fd, tmp_report = tempfile.mkstemp(suffix=".txt", dir=out_dir)
+        with os.fdopen(fd, "w") as f:
+            f.write(proc.stderr)
+        os.replace(tmp_report, report)
         os.replace(tmp, lib_path)
         info["seconds"] = time.perf_counter() - t0
-        info["ptxas"] = proc.stderr
+    if report.exists():
+        info["ptxas"] = report.read_text()
     lib = ctypes.CDLL(str(lib_path))
     _LIBS[name] = lib
     BUILD_INFO[name] = info

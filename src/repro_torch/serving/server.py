@@ -214,8 +214,10 @@ class GraphServer:
         tighter refill latency, more host round-trips; must be a multiple
         of ``sweeps_per_call``.
     backend / inner / sweeps_per_call / bs : forwarded to
-        `engine.async_block.AsyncBlockSession` (``"torch"`` or ``"kernel"``;
-        ``"distributed"`` is not ported yet).
+        `engine.async_block.AsyncBlockSession` (``"torch"``, ``"kernel"``,
+        or ``"distributed"``: each family backed by the superstep of
+        `engine.distributed.DistContext` over the default process group's
+        ranks, or one rank when ``torch.distributed`` is not initialized).
     device : torch device the families live on (``"cuda"`` unless asked
         otherwise; a card that is absent raises).
     policy : admission order — "fifo" | "priority" | "deadline".
@@ -323,13 +325,6 @@ class GraphServer:
             raise TypeError(
                 f"trace must be a repro_torch.obs.trace.Tracer or None, "
                 f"got {type(trace).__name__}"
-            )
-        if backend == "distributed":
-            from repro_torch.engine.api import EngineUnsupportedError
-
-            raise EngineUnsupportedError(
-                "GraphServer(backend='distributed') is not ported to "
-                "repro_torch yet: ROADMAP §A3 (engine/distributed.py)"
             )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

@@ -188,13 +188,6 @@ def test_extrapolation_on_lattice_unsupported():
         rt.solve(ta, extrapolate_every=4, device="cpu")
 
 
-@pytest.mark.parametrize("engine", ["distributed"])
-def test_unported_engines_raise(engine):
-    ta = algo_from_arrays(algo_fields(_instance("ms_sssp", 1)))
-    with pytest.raises(T_api.EngineUnsupportedError, match="ROADMAP"):
-        rt.solve(ta, engine=engine, device="cpu")
-
-
 def test_cuda_device_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ta = algo_from_arrays(algo_fields(_instance("ms_sssp", 1)))

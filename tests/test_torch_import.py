@@ -25,7 +25,8 @@ def test_port_modules_listed():
     for name in ("engine.push", "engine.incremental", "graphs.delta",
                  "kernels.push_scatter", "kernels.bsr_spmm", "serving.server",
                  "serving.scheduler", "serving.cache", "serving.stats",
-                 "obs.metrics"):
+                 "obs.metrics", "engine.distributed", "graphs.io",
+                 "kernels.budgets"):
         assert f"repro_torch.{name}" in MODULES
 
 

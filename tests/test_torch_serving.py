@@ -23,7 +23,6 @@ from repro.graphs.graph import Graph as RGraph  # noqa: E402
 from repro.serving import GraphServer as RServer  # noqa: E402
 
 import repro_torch as rt  # noqa: E402
-from repro_torch.engine.api import EngineUnsupportedError  # noqa: E402
 from repro_torch.engine.async_block import AsyncBlockSession  # noqa: E402
 from repro_torch.graphs.graph import Graph as TGraph  # noqa: E402
 from repro_torch.interop import algo_from_arrays, algo_fields  # noqa: E402
@@ -149,14 +148,6 @@ def test_kernel_backend_matches_reference_pallas(sweeps):
             solo = r_run_async_block(r_get_algorithm(a, GW, **_params(a, s)), bs=BS)
             assert tt.rounds == solo.rounds
             np.testing.assert_array_equal(tt.result, solo.x)
-
-
-def test_session_distributed_backend_is_not_ported():
-    q = algo_from_arrays(algo_fields(r_get_algorithm("sssp", GW, source=0)))
-    with pytest.raises(EngineUnsupportedError, match="A3"):
-        AsyncBlockSession(q, bs=BS, backend="distributed", device="cpu")
-    with pytest.raises(EngineUnsupportedError, match="A3"):
-        GraphServer(TGW, backend="distributed", device="cpu")
 
 
 def test_session_report_and_accounting_match_reference():

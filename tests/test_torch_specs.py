@@ -135,7 +135,7 @@ def test_pack_bsr_flat_identical(bs, fill):
 
 def test_pack_bsr_flat_empty_graph():
     r = RB.pack_bsr_flat(RG.Graph(10, [], []), 4)
-    t = TB.pack_bsr_flat(TG.Graph(10, [], []), 4)
+    t = TB.pack_bsr_flat(TG.Graph(10, [], []), 4, device="cpu")
     _same(r.tiles, t.tiles.numpy())
     _same(r.rowptr, t.rowptr)
     for a, b in zip(r.reverse_deps(), t.reverse_deps(), strict=True):
