@@ -57,16 +57,27 @@ graph:
   global PageRank and the d = 64 PPR and SSSP batches; the sync states held
   to the kernel's), Fig. 5/6 (global PageRank through the kernel under each
   of the eight orders of ``core.baselines.all_reorderers``) and the
-  priority-scheduled block engine on global PageRank and the SSSP batch.
+  priority-scheduled block engine on global PageRank and the SSSP batch;
+* the dense-decoder LM serving path (``phase_lm``; no kernel of its own:
+  the reference computes attention in ``jnp``) — the reduced dense
+  configurations in f32 held to the CPU, gemma3-4b at full width (6 layers,
+  f32) held to the CPU past its window and KV chunk, then gemma3-4b at full
+  width and depth in bf16 serving 4 x 4,096-token prompts and 32 greedy
+  decode steps through ``build_model``, ``prefill`` and ``decode_step``, each
+  step held to ``forward``, with ``[lm]`` lines of prefill seconds, decode
+  ms a step, tokens/s, peak memory and their bounds.
 
 Any failure raises and exits non-zero. The second-to-last line of standard
 output is the kernels' JSON record, the last line the device JSON. Detailed
 per-case results go to ``chiprun_out/chip_smoke.json``. With no CUDA device
 it exits non-zero before printing any result. ``--only-kernels`` stops after
-the kernel-vs-plain phase.
+the kernel-vs-plain phase; ``--only-lm`` runs the environment phase and the
+LM phase only.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import importlib
 import itertools
 import json
@@ -1981,6 +1992,412 @@ def phase_priority(ctx: dict) -> None:
                                  f"kernel's {row['vs_kernel']}")
 
 
+# ---------------------------------------------------------------------------
+# the dense-decoder LM serving path
+# ---------------------------------------------------------------------------
+
+BF16_DENSE_OPS_PER_S = 989e12  # tensor cores, dense (H100 SXM data sheet)
+LM_ARCH = "gemma3-4b"
+# reduced configurations held card against CPU: (arch, config overrides)
+LM_REDUCED = (("olmo-1b", {}), ("deepseek-7b", {}),
+              ("deepseek-7b", {"kv_cache_dtype": "int8"}), ("gemma-7b", {}),
+              ("gemma3-4b", {}), ("internvl2-76b", {}))
+LM_REDUCED_PROMPT = 40    # > kv_chunk 32: attention_chunked; gemma3's window of 8 rolls
+LM_REDUCED_STEPS = 8
+LM_F32_TOL = {"atol": 2e-4, "rtol": 2e-3}  # the tier-1 tests' tolerance
+# an int8 cache: a value within float noise of a rounding boundary lands one
+# step over on one device (1/127 of its row's largest |K| or |V|), which
+# moves the logits by ~1e-3; such steps must stay rare (LM_INT8_STEPS_OFF)
+LM_INT8_TOL = {"atol": 1e-2, "rtol": 1e-2}
+LM_INT8_STEPS_OFF = 1e-3
+LM_WIDE_TOL = {"atol": 1e-3, "rtol": 2e-3}  # full width (sums of 10,240 terms), f32
+LM_WIDE_PROMPT = 1040     # > window 1024 and kv_chunk 1024: chunked, rolling caches
+LM_WIDE_STEPS = 2
+LM_SERVE = (4, 4096, 32)  # requests, prompt, decode steps: attention_chunked_q
+LM_SHORT = (4, 512, 8)    # attention_full
+LM_PROFILED_STEPS = 2     # the serving run's last decode steps, under torch.profiler
+# bf16: a decode step against forward at its position, element by element
+# |step - forward| <= LM_BF16_ATOL + LM_BF16_RTOL * |forward|, and per
+# position in norm within LM_BF16_NORM; the prefill's last logits against
+# the same weights in f32 within LM_BF16_VS_F32 in norm
+LM_BF16_ATOL = 0.5
+LM_BF16_RTOL = 2.0 ** -6
+LM_BF16_NORM = 0.05
+LM_BF16_VS_F32 = 0.05
+
+
+def _lm_numpy_tree(cfg, seed: int) -> dict:
+    """Weights in the reference's layout (``emb``, ``final_norm``,
+    ``cycles[j]`` stacked over cycles, ``rem[i]``) from
+    ``default_rng(seed)``: fan-in scaled normals, norm scales ~ N(0, 0.1^2)."""
+    from repro_torch.models.model import abstract_params
+    from repro_torch.models.transformer import _layer_plan
+
+    shapes, _ = abstract_params(cfg)
+    rng = np.random.default_rng(seed)
+    n_cycles, rem = _layer_plan(cfg)
+    c = len(cfg.pattern)
+
+    def draw(tree: dict, lead: tuple = ()) -> dict:
+        out = {}
+        for name, t in tree.items():
+            if isinstance(t, dict):
+                out[name] = draw(t, lead)
+                continue
+            shape = tuple(t.shape)
+            std = 0.1 if name in ("scale", "bias") else shape[name == "emb"] ** -0.5
+            out[name] = (rng.standard_normal(lead + shape) * std).astype(np.float32)
+        return out
+
+    layers = shapes["layers"]
+    return {"emb": draw({"emb": shapes["emb"]})["emb"],
+            "final_norm": draw(shapes["final_norm"]),
+            "cycles": [draw(layers[j], (n_cycles,)) for j in range(c)],
+            "rem": [draw(layers[n_cycles * c + i]) for i in range(len(rem))]}
+
+
+def _host_copy(caches: list) -> list:
+    return [{k: v.to("cpu", copy=True) for k, v in c.items()} for c in caches]
+
+
+def _lm_run(model, toks: np.ndarray, prompt: int, steps: int, prefix=None,
+            forward: bool = True) -> dict:
+    """``forward`` over the prompt and the next ``steps`` tokens, ``prefill``
+    of the prompt and ``steps`` decode steps fed those tokens; every output
+    brought to the host."""
+    dev = model.weights.emb.device
+    t = torch.from_numpy(toks).to(dev)
+    kw = {} if prefix is None else {"prefix_embeds": torch.from_numpy(prefix).to(dev)}
+    p0 = prompt + (0 if prefix is None else prefix.shape[1])
+    out: dict = {}
+    with torch.inference_mode():
+        if forward:
+            out["forward"] = model(t[:, :prompt + steps], **kw)[0].cpu()
+        logits, caches = model.prefill(t[:, :prompt], p0 + steps, **kw)
+        out["prefill"] = logits.cpu()
+        out["prefill_caches"] = _host_copy(caches)  # decode writes into caches
+        out["decode"] = []
+        for i in range(steps):
+            pos = torch.full((toks.shape[0],), p0 + i, device=dev)
+            lg, caches = model.decode_step(caches, t[:, prompt + i:prompt + i + 1], pos)
+            out["decode"].append(lg.cpu())
+        out["caches"] = _host_copy(caches)
+    return out
+
+
+def _lm_hold(label: str, card: dict, cpu: dict, tol: dict) -> dict:
+    """Every output of two `_lm_run`s: logits and float cache entries within
+    ``tol``, slot positions equal, int8 K/V within one step (a value on a
+    rounding boundary)."""
+    pairs = [("prefill", card["prefill"], cpu["prefill"])]
+    pairs += [(f"decode{i}", a, b) for i, (a, b) in enumerate(zip(card["decode"], cpu["decode"]))]
+    if "forward" in card:
+        pairs.append(("forward", card["forward"], cpu["forward"]))
+    for key in ("prefill_caches", "caches"):
+        for i, (ca, cb) in enumerate(zip(card[key], cpu[key])):
+            pairs += [(f"{key}[{i}].{n}", ca[n], cb[n]) for n in ca]
+    worst, bad, off, n_int8 = 0.0, [], 0, 0
+    for what, a, b in pairs:
+        if a.shape != b.shape or a.dtype != b.dtype:
+            bad.append(what)
+            continue
+        if a.is_floating_point():
+            worst = max(worst, (a.float() - b.float()).abs().max().item())
+            ok = torch.allclose(a.float(), b.float(), **tol)
+        elif what.endswith("slot_pos"):
+            ok = torch.equal(a, b)
+        else:
+            diff = (a.int() - b.int()).abs()
+            off += int((diff > 0).sum())
+            n_int8 += diff.numel()
+            ok = diff.max().item() <= 1
+        if not ok:
+            bad.append(what)
+    if n_int8 and off > LM_INT8_STEPS_OFF * n_int8:
+        bad.append(f"{off} of {n_int8} int8 entries one step over")
+    row = {"label": label, "compared": len(pairs), "max_abs_diff": worst, "tol": tol,
+           "int8_steps_off": off, "int8_entries": n_int8, "ok": not bad}
+    log(f"[lm] card against CPU {json.dumps(row)}")
+    if bad:
+        raise AssertionError(f"lm {label}: card against CPU out of {tol}: {bad[:8]}")
+    return row
+
+
+def _lm_reduced() -> list:
+    """(a) The reduced dense configurations in f32, card against CPU."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.interop import lm_params_from_arrays
+
+    rows = []
+    for seed, (arch, over) in enumerate(LM_REDUCED):
+        cfg = dataclasses.replace(get_reduced(arch), **over)
+        tree = _lm_numpy_tree(cfg, seed)
+        rng = np.random.default_rng(100 + seed)
+        toks = rng.integers(0, cfg.vocab, size=(2, LM_REDUCED_PROMPT + LM_REDUCED_STEPS))
+        prefix = (rng.standard_normal((2, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+                  if cfg.prefix_len else None)
+        runs = [_lm_run(lm_params_from_arrays(cfg, tree, device=dev), toks,
+                        LM_REDUCED_PROMPT, LM_REDUCED_STEPS, prefix)
+                for dev in (DEVICE, "cpu")]
+        label = arch + ("-int8kv" if over else "")
+        rows.append(_lm_hold(label, *runs, LM_INT8_TOL if "kv_cache_dtype" in over else LM_F32_TOL))
+    return rows
+
+
+def _lm_wide() -> dict:
+    """(b) gemma3-4b at full width, one pattern cycle (6 layers), f32: two
+    prompts of LM_WIDE_PROMPT tokens and LM_WIDE_STEPS decode steps on the
+    card and on the CPU, the same weights (drawn on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model, build_model
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=len(get_config(LM_ARCH).pattern),
+                              dtype="float32")
+    card = build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(1))
+    host = Model(cfg, device="cpu", params=tree_map(lambda t: t.cpu(), card.params))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, LM_WIDE_PROMPT + LM_WIDE_STEPS))
+    t0 = time.perf_counter()
+    runs = [_lm_run(m, toks, LM_WIDE_PROMPT, LM_WIDE_STEPS, forward=False) for m in (card, host)]
+    row = _lm_hold(f"{LM_ARCH} full width, {cfg.n_layers} layers, f32", *runs, LM_WIDE_TOL)
+    row["seconds"] = time.perf_counter() - t0
+    del card, host, runs
+    torch.cuda.empty_cache()
+    return row
+
+
+def _greedy(model, caches, tok, pos, steps: int, fed: list, logits: list):
+    """``steps`` greedy decode steps from ``tok`` at positions ``pos``,
+    ``pos + 1``, ...: the tokens fed and each step's logits appended."""
+    for i in range(steps):
+        fed.append(tok)
+        lg, caches = model.decode_step(caches, tok[:, None], pos + i)
+        logits.append(lg[:, 0])
+        tok = lg[:, 0].argmax(-1)
+    return caches, tok
+
+
+def _profiled(fn, steps: int) -> tuple:
+    """``fn()`` (``steps`` decode steps) under ``torch.profiler``: wall ms a
+    step, the device's busy ms (kernel time summed) and idle share, kernel
+    launches a step and the ops that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    return res, {
+        "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+        "device_busy_ms_per_step": busy_ms / steps,
+        "device_idle_share": 1.0 - busy_ms / (1e3 * wall),
+        "launches_per_step": sum(e.count for e in kernels) / steps,
+        "top_device_ops": [{"op": e.key[:80], "ms_per_step": dev_us(e) / 1e3 / steps}
+                           for e in top],
+    }
+
+
+def _lm_serve(model, batch: int, prompt: int, steps: int, seed: int,
+              profiled: int = 0) -> tuple:
+    """``examples/serve_lm.py``'s loop: prefill ``batch`` prompts of
+    ``prompt`` tokens from ``default_rng(seed)`` (timed after one warm-up
+    prefill of the same shape), then ``steps`` greedy
+    decode steps (the last ``profiled`` under the profiler). Each step's
+    logits, and the prefill's last, are held to ``forward`` over the prompt
+    and the tokens fed, at that position; the greedy tokens to forward's
+    where its top-2 gap exceeds the tolerance. Returns (row, prompts, the
+    prefill's last logits)."""
+    cfg = model.cfg
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, prompt))
+    toks = torch.from_numpy(prompts).to(DEVICE)
+    row: dict = {"batch": batch, "prompt": prompt, "decode_steps": steps}
+    fed: list = []
+    with torch.inference_mode():
+        model.prefill(toks, prompt + steps)  # warm-up: this shape's first call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        last, caches = model.prefill(toks, prompt + steps)
+        torch.cuda.synchronize()
+        row["prefill_s"] = time.perf_counter() - t0
+        logits = [last[:, -1]]
+        tok = last[:, -1].argmax(-1)
+        pos = torch.full((batch,), prompt, device=DEVICE)
+        timed = steps - profiled
+        t0 = time.perf_counter()
+        caches, tok = _greedy(model, caches, tok, pos, timed, fed, logits)
+        torch.cuda.synchronize()
+        row["decode_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / timed
+        row["decode_tokens_per_s"] = batch * 1e3 / row["decode_ms_per_step"]
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if profiled:
+            (caches, tok), row["decode_profile"] = _profiled(
+                lambda: _greedy(model, caches, tok, pos + timed, profiled, fed, logits),
+                profiled)
+        row["cache_gb"] = sum(t.numel() * t.element_size() for c in caches
+                              for t in c.values()) / 1e9
+        del caches
+        got = torch.stack(logits, 1)                       # (b, steps + 1, V)
+        full = model(torch.cat([toks, torch.stack(fed, 1)], 1))[0]
+        want = full[:, prompt - 1:].clone()
+        del full
+    diff = (got - want).abs()
+    elem_ok = bool((diff <= LM_BF16_ATOL + LM_BF16_RTOL * want.abs()).all())
+    norm = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    top = want.topk(2, dim=-1)
+    decided = (top.values[..., 0] - top.values[..., 1]) > (
+        LM_BF16_ATOL + LM_BF16_RTOL * top.values[..., 0].abs())
+    agree = got.argmax(-1) == top.indices[..., 0]
+    row["vs_forward"] = {
+        "positions": int(got.shape[0] * got.shape[1]), "max_abs_diff": diff.max().item(),
+        "mean_abs_diff": diff.mean().item(), "max_norm_rel": norm,
+        "tokens_decided": int(decided.sum()), "tokens_agree": int(agree.sum()),
+        "decided_disagree": int((decided & ~agree).sum()),
+        "ok": elem_ok and norm <= LM_BF16_NORM and bool(agree[decided].all()),
+    }
+    log(f"[lm] serve {json.dumps(row)}")
+    if not row["vs_forward"]["ok"]:
+        raise AssertionError(f"lm serve {batch}x{prompt}: decode against forward "
+                             f"{row['vs_forward']}")
+    return row, toks, last[:, -1]
+
+
+def _lm_bounds(cfg, params, batch: int, prompt: int, steps: int) -> dict:
+    """The least time the card could take: a decode step reads every weight
+    once and the K/V of the slots its attention needs (the last step's);
+    the prefill's operations are the matrix products (logits at the last
+    position only) and the attention of the causal/window band."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.transformer import layer_kinds
+
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    elt = cfg.torch_dtype.itemsize
+    kinds = layer_kinds(cfg)
+    kv_row = 2 * batch * cfg.n_kv * cfg.head_dim * elt         # k and v of one slot
+    slots = sum(min(prompt + steps, cfg.window) if k == "local+mlp" else prompt + steps
+                for k in kinds)
+    matrices = cfg.n_params() - cfg.vocab * cfg.d_model
+    keys = 0
+    for k in kinds:
+        p = np.arange(prompt, dtype=np.int64) + 1
+        keys += int(np.minimum(p, cfg.window).sum() if k == "local+mlp" else p.sum())
+    attn_ops = 4 * batch * keys * cfg.n_heads * cfg.head_dim
+    prefill_ops = 2 * batch * prompt * matrices + 2 * batch * cfg.d_model * cfg.vocab + attn_ops
+    prefill_ms = {"operations": 1e3 * prefill_ops / BF16_DENSE_OPS_PER_S,
+                  "bytes": 1e3 * weight_bytes / HBM_BYTES_PER_S}
+    by = max(prefill_ms, key=prefill_ms.get)
+    return {
+        "weight_gb": weight_bytes / 1e9, "kv_read_gb": slots * kv_row / 1e9,
+        "decode_bound_ms": 1e3 * (weight_bytes + slots * kv_row) / HBM_BYTES_PER_S,
+        "decode_bound_by": "bytes",
+        "prefill_ops": prefill_ops, "prefill_attention_ops": attn_ops,
+        "prefill_bound_ms": prefill_ms[by], "prefill_bound_by": by,
+    }
+
+
+def phase_lm() -> None:
+    """The dense-decoder LM serving path of the port on the card, f32 with
+    TF32 off, bf16 with f32 reductions.
+
+    (a) The reduced olmo-1b, deepseek-7b (also with an int8 KV cache),
+        gemma-7b, gemma3-4b and internvl2-76b in f32 (numpy weights in the
+        reference's layout, carried across by ``lm_params_from_arrays``):
+        forward, prefill and LM_REDUCED_STEPS decode steps on the card
+        against the same on the CPU (which the tier-1 tests hold to the
+        reference) within LM_F32_TOL.
+    (b) gemma3-4b at full width, 6 layers, f32: two 1,040-token prompts
+        (past the window and the KV chunk) on the card against the CPU
+        within LM_WIDE_TOL.
+    (c) gemma3-4b at full width and depth in bf16, weights from a generator
+        seeded 0 on the card: 4 x 512-token prompts (attention_full) and 8
+        decode steps, then the serving run, 4 x 4,096-token prompts
+        (attention_chunked_q) and 32 greedy decode steps (max_seq 4,128);
+        each step held to forward, and the serving prefill's last logits to
+        an f32 copy of the weights within LM_BF16_VS_F32 in norm.
+    (d) ``[lm]`` lines: prefill s, decode ms a step and tokens/s, peak
+        memory, the parameter count and the bounds.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import count_params, tree_leaves, tree_map
+    from repro_torch.models.model import Model, build_model
+
+    t_phase = time.perf_counter()
+    # the reference accumulates bf16 products in f32: no reduced-precision
+    # split-K reductions in cuBLAS either
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rec: dict = {"reduced": _lm_reduced()}
+    rec["wide"] = _lm_wide()
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    params = model.params
+    norms = sum(t.numel() for layer in params["layers"]
+                for name in ("norm1", "norm2") for t in tree_leaves(layer[name]))
+    norms += sum(t.numel() for t in tree_leaves(params["final_norm"]))
+    rec["model"] = {"arch": LM_ARCH, "dtype": cfg.dtype, "layers": cfg.n_layers,
+                    "n_params": cfg.n_params(), "tensor_elements": count_params(params),
+                    "norm_elements": norms, "init_s": time.perf_counter() - t0}
+    log(f"[lm] model {json.dumps(rec['model'])}")
+    if count_params(params) - norms != cfg.n_params():
+        raise AssertionError(f"lm: {count_params(params) - norms} matrix parameters "
+                             f"against the analytic {cfg.n_params()}")
+    short, _, _ = _lm_serve(model, *LM_SHORT, seed=2)
+    serve, prompts, last = _lm_serve(model, *LM_SERVE, seed=0, profiled=LM_PROFILED_STEPS)
+    # the same weights in f32
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), device=DEVICE,
+                params=tree_map(lambda t: t.float(), params))
+    with torch.inference_mode():
+        l32, c32 = m32.prefill(prompts, prompts.shape[1])
+        rel = ((last - l32[:, -1]).norm() / l32[:, -1].norm()).item()
+    del m32, c32, l32
+    torch.cuda.empty_cache()
+    rec["bf16_vs_f32"] = {"prefill_last_logits_norm_rel": rel, "limit": LM_BF16_VS_F32}
+    log(f"[lm] bf16 against f32 weights {json.dumps(rec['bf16_vs_f32'])}")
+    if rel > LM_BF16_VS_F32:
+        raise AssertionError(f"lm: bf16 prefill logits {rel:.4f} from f32 in norm")
+    rec["short"], rec["serve"] = short, serve
+    bounds = _lm_bounds(cfg, params, *LM_SERVE)
+    rec["bounds"] = bounds
+    log(f"[lm] bounds {json.dumps(bounds)}")
+    summary = {
+        "prefill_s": serve["prefill_s"], "prefill_bound_s": bounds["prefill_bound_ms"] / 1e3,
+        "decode_ms_per_step": serve["decode_ms_per_step"],
+        "decode_bound_ms": bounds["decode_bound_ms"],
+        "decode_tokens_per_s": serve["decode_tokens_per_s"], "peak_gb": serve["peak_gb"],
+        "n_params": cfg.n_params(),
+        "decode_device_idle_share": serve.get("decode_profile", {}).get("device_idle_share"),
+    }
+    rec["summary"] = summary
+    log(f"[lm] summary {json.dumps(summary)}")
+    del model, params, prompts, last
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[lm] phase {rec['seconds']:.1f} s")
+    RECORD["phases"]["lm"] = rec
+
+
+def _write_record(t0: float) -> None:
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    RECORD["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(RECORD, f, indent=1)
+    log(f"[done] {RECORD['seconds']:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1989,6 +2406,10 @@ def main() -> int:
         return dist_rank_main(int(sys.argv[2]), sys.argv[3])
     t0 = time.perf_counter()
     _, kind = phase_env()
+    if "--only-lm" in sys.argv[1:]:
+        phase_lm()
+        _write_record(t0)
+        return 0
     phase_build()
     phase_kernels()
     if "--only-kernels" in sys.argv[1:]:
@@ -2000,12 +2421,11 @@ def main() -> int:
     phase_fig8(ctx)
     phase_orders(ctx)
     phase_priority(ctx)
-    out_dir = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    RECORD["seconds"] = time.perf_counter() - t0
-    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump(RECORD, f, indent=1)
-    log(f"[done] {RECORD['seconds']:.1f} s")
+    del ctx  # the graph phases' device memory, before the LM's
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lm()
+    _write_record(t0)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -14,7 +14,11 @@ the very same instance and operands to the port:
 * :func:`delta_fields` reads a ``GraphDelta`` of either package into plain
   data, and :func:`delta_from_arrays` builds the port's
   :class:`~repro_torch.graphs.delta.GraphDelta` from it. A prior converged
-  state crosses as its numpy ``x``.
+  state crosses as its numpy ``x``;
+* :func:`lm_params_from_arrays` loads the numpy form of a reference LM
+  parameter tree into the port's :class:`~repro_torch.models.model.Model`,
+  and :func:`lm_caches_from_arrays` turns a reference decode-cache tree into
+  the port's per-layer caches.
 """
 from __future__ import annotations
 
@@ -25,6 +29,9 @@ import torch
 
 from repro_torch.engine.algorithms import AlgoInstance, Semiring
 from repro_torch.graphs.delta import GraphDelta
+from repro_torch.models.layers import tree_map
+from repro_torch.models.model import Model, ModelConfig
+from repro_torch.models.transformer import _layer_plan
 
 _ARRAY_FIELDS = ("src", "dst", "w", "x0", "c", "fixed")
 _SCALAR_FIELDS = ("name", "n", "combine", "residual", "eps", "monotone_dir")
@@ -111,3 +118,45 @@ def delta_from_arrays(fields: dict) -> GraphDelta:
     return GraphDelta(n_add=int(fields["n_add"]),
                       add_w=None if add_w is None else np.asarray(add_w).copy(),
                       **kw)
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, as JAX hands them out) as a
+    fresh tensor on ``device``, cast to ``dtype`` when given."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device=device, dtype=dtype)
+
+
+def _per_layer(cfg: ModelConfig, cycles: list, rem: list) -> list:
+    """The reference's depth layout (``cycles[j]`` stacked over cycles,
+    then ``rem[i]``) as one entry per layer in execution order."""
+    n_cycles, _ = _layer_plan(cfg)
+    layers = [tree_map(lambda a, i=i: a[i], cycles[j])
+              for i in range(n_cycles) for j in range(len(cfg.pattern))]
+    return layers + list(rem)
+
+
+def lm_params_from_arrays(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
+    """The port's Model holding the reference's parameters: ``tree`` is the
+    reference's parameter pytree as numpy (``emb``, ``final_norm``,
+    ``cycles[j]`` stacked over cycles, ``rem[i]``); every array is cast to
+    the model dtype."""
+    dtype = cfg.torch_dtype
+    layers = _per_layer(cfg, tree["cycles"], tree["rem"])
+    params = {
+        "emb": _tensor(tree["emb"], device, dtype),
+        "final_norm": tree_map(lambda a: _tensor(a, device, dtype), tree["final_norm"]),
+        "layers": [tree_map(lambda a: _tensor(a, device, dtype), p) for p in layers],
+    }
+    return Model(cfg, device=device, params=params)
+
+
+def lm_caches_from_arrays(cfg: ModelConfig, tree: dict, device="cuda") -> list[dict]:
+    """The port's per-layer decode caches from a reference cache tree
+    (``{"cycles": [...], "rem": [...]}`` as numpy), dtypes kept."""
+    layers = _per_layer(cfg, tree["cycles"], tree["rem"])
+    return [tree_map(lambda a: _tensor(a, device), c) for c in layers]

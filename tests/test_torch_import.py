@@ -26,8 +26,14 @@ def test_port_modules_listed():
                  "kernels.push_scatter", "kernels.bsr_spmm", "serving.server",
                  "serving.scheduler", "serving.cache", "serving.stats",
                  "obs.metrics", "engine.distributed", "graphs.io",
-                 "kernels.budgets"):
+                 "kernels.budgets", "interop", "models", "models.layers",
+                 "models.attention", "models.blocks", "models.transformer",
+                 "models.model", "configs"):
         assert f"repro_torch.{name}" in MODULES
+    for arch in ("olmo_1b", "deepseek_7b", "gemma_7b", "gemma3_4b", "internvl2_76b",
+                 "qwen2_moe_a2_7b", "granite_moe_1b_a400m", "xlstm_350m",
+                 "whisper_tiny", "recurrentgemma_2b"):
+        assert f"repro_torch.configs.{arch}" in MODULES
 
 
 def test_import_without_jax_loads_no_reference_module():
