@@ -58,14 +58,18 @@ graph:
   to the kernel's), Fig. 5/6 (global PageRank through the kernel under each
   of the eight orders of ``core.baselines.all_reorderers``) and the
   priority-scheduled block engine on global PageRank and the SSSP batch;
-* the dense-decoder LM serving path (``phase_lm``; no kernel of its own:
-  the reference computes attention in ``jnp``) — the reduced dense
-  configurations in f32 held to the CPU, gemma3-4b at full width (6 layers,
-  f32) held to the CPU past its window and KV chunk, then gemma3-4b at full
-  width and depth in bf16 serving 4 x 4,096-token prompts and 32 greedy
-  decode steps through ``build_model``, ``prefill`` and ``decode_step``, each
-  step held to ``forward``, with ``[lm]`` lines of prefill seconds, decode
-  ms a step, tokens/s, peak memory and their bounds.
+* the LM serving paths (``phase_lm``; no kernel of their own: the
+  reference computes them in ``jnp``) — the reduced configurations of every
+  family (dense, MoE, recurrent, encoder-decoder) in f32 held to the CPU, a
+  full-width cut of each (gemma3-4b 6 layers, qwen2-moe 1, recurrentgemma
+  3, xlstm 2, whisper-tiny whole) in f32 held to the CPU, then gemma3-4b,
+  qwen2-moe-a2.7b, recurrentgemma-2b and xlstm-350m at full width and
+  depth in bf16 and whisper-tiny whole, serving batches of 4 prompts and
+  32 greedy decode steps through ``build_model``, ``prefill`` and
+  ``decode_step``, each step held to ``forward`` (the MoE's on a run at
+  capacity 16, where nothing drops), bf16 held to f32 weights, with
+  ``[lm]`` lines of prefill seconds, decode ms a step, tokens/s, peak
+  memory, the MoE's dropped share and their bounds.
 
 Any failure raises and exits non-zero. The second-to-last line of standard
 output is the kernels' JSON record, the last line the device JSON. Detailed
@@ -1993,17 +1997,19 @@ def phase_priority(ctx: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the dense-decoder LM serving path
+# the LM serving paths
 # ---------------------------------------------------------------------------
 
 BF16_DENSE_OPS_PER_S = 989e12  # tensor cores, dense (H100 SXM data sheet)
-LM_ARCH = "gemma3-4b"
 # reduced configurations held card against CPU: (arch, config overrides)
 LM_REDUCED = (("olmo-1b", {}), ("deepseek-7b", {}),
               ("deepseek-7b", {"kv_cache_dtype": "int8"}), ("gemma-7b", {}),
-              ("gemma3-4b", {}), ("internvl2-76b", {}))
-LM_REDUCED_PROMPT = 40    # > kv_chunk 32: attention_chunked; gemma3's window of 8 rolls
+              ("gemma3-4b", {}), ("internvl2-76b", {}), ("qwen2-moe-a2.7b", {}),
+              ("granite-moe-1b-a400m", {}), ("recurrentgemma-2b", {}),
+              ("xlstm-350m", {}), ("whisper-tiny", {}))
+LM_REDUCED_PROMPT = 40    # > kv_chunk 32: attention_chunked; windows of 8 roll; MoE drops
 LM_REDUCED_STEPS = 8
+LM_REDUCED_FRAMES = 48    # whisper: 40 x 48 > 32^2, the chunked cross-attention
 LM_F32_TOL = {"atol": 2e-4, "rtol": 2e-3}  # the tier-1 tests' tolerance
 # an int8 cache: a value within float noise of a rounding boundary lands one
 # step over on one device (1/127 of its row's largest |K| or |V|), which
@@ -2011,88 +2017,163 @@ LM_F32_TOL = {"atol": 2e-4, "rtol": 2e-3}  # the tier-1 tests' tolerance
 LM_INT8_TOL = {"atol": 1e-2, "rtol": 1e-2}
 LM_INT8_STEPS_OFF = 1e-3
 LM_WIDE_TOL = {"atol": 1e-3, "rtol": 2e-3}  # full width (sums of 10,240 terms), f32
-LM_WIDE_PROMPT = 1040     # > window 1024 and kv_chunk 1024: chunked, rolling caches
-LM_WIDE_STEPS = 2
-LM_SERVE = (4, 4096, 32)  # requests, prompt, decode steps: attention_chunked_q
-LM_SHORT = (4, 512, 8)    # attention_full
-LM_PROFILED_STEPS = 2     # the serving run's last decode steps, under torch.profiler
+# (b) full width, f32, card against CPU: arch, layers (0: all), batch,
+# prompt, decode steps, encoder frames, seed
+LM_WIDE = (
+    # past the window of 1,024 and the KV chunk: chunked, rolling caches
+    ("gemma3-4b", 6, 2, 1040, 2, 0, 1),
+    # two dispatch groups a row; tokens drop at capacity 1.25
+    ("qwen2-moe-a2.7b", 1, 2, 2048, 2, 0, 2),
+    # rglru, rglru, local; attention_chunked past the KV chunk
+    ("recurrentgemma-2b", 3, 2, 1040, 2, 0, 3),
+    # mlstm, slstm; 300 is not a multiple of the 256-token mLSTM chunk
+    ("xlstm-350m", 2, 2, 300, 2, 0, 4),
+    # whole (4 + 4 layers) over 1,500 frames (30 s of audio)
+    ("whisper-tiny", 0, 2, 64, 2, 1500, 5),
+)
+LM_PROFILED_STEPS = 2     # gemma3's serving run's last decode steps, under torch.profiler
+LM_MOE_F32 = (4, 512, 8)  # the MoE's f32 decode check: requests, prompt, decode steps
+# (c) full width and depth, bf16, weights from a generator seeded 0 on the
+# card: the serving run (requests, prompt, decode steps) and what else
+# each model runs: a short run held to forward, the decode steps' profile,
+# encoder frames and max_seq, and the bf16-against-f32 check's layers (0:
+# a copy of the whole model; n: its first n layers)
+LM_SERVED = {
+    "gemma3-4b": dict(serve=(4, 4096, 32), short=(4, 512, 8), profiled=LM_PROFILED_STEPS),
+    # 29.67 GB in bf16: no f32 copy of the whole; decode held to forward at
+    # capacity 16 (no drops), as the reference's own decode test
+    "qwen2-moe-a2.7b": dict(serve=(4, 4096, 32), short=(4, 512, 8), short_capacity=16.0,
+                            hold_serve=False, f32_layers=4, f32_decode=True),
+    # 4,128 positions roll the local caches past the window of 2,048
+    "recurrentgemma-2b": dict(serve=(4, 4096, 32)),
+    "xlstm-350m": dict(serve=(4, 1024, 32)),
+    # 30 s of audio, a 448-token text context
+    "whisper-tiny": dict(serve=(4, 64, 32), frames=1500, max_seq=448),
+}
 # bf16: a decode step against forward at its position, element by element
 # |step - forward| <= LM_BF16_ATOL + LM_BF16_RTOL * |forward|, and per
 # position in norm within LM_BF16_NORM; the prefill's last logits against
-# the same weights in f32 within LM_BF16_VS_F32 in norm
+# the same weights in f32 within LM_BF16_VS_F32 in norm (the MoE's cut: its
+# forward logits at each position both dtypes routed alike)
 LM_BF16_ATOL = 0.5
 LM_BF16_RTOL = 2.0 ** -6
 LM_BF16_NORM = 0.05
 LM_BF16_VS_F32 = 0.05
+# a bf16 MoE routes a token on near ties: decode and forward, whose hidden
+# states differ by bf16 rounding, pick different experts at some positions
+# and layers (ties of bf16 router logits broken apart by an ulp), and such
+# a position's state parts from there on. The bf16 check holds the
+# positions routed alike in every layer to the tolerances above and
+# reports the others; it fails if fewer than LM_MOE_ALIKE_MIN of the held
+# positions routed alike (12 of 36 over qwen2-moe's 24 layers on the
+# H100), or if a position parted where its swapped experts' router
+# log-probabilities lay more than LM_MOE_FLIP_GAP apart on either path (a
+# wider gap is no rounding tie). The MoE is held to forward at every
+# position in f32 at full depth (LM_MOE_F32), whose router logits round
+# 2^16 times finer.
+LM_MOE_ALIKE_MIN = 0.25
+LM_MOE_FLIP_GAP = 2.0 ** -3
+# the MoE's bf16-against-f32 cut: the positions whose experts both dtypes
+# chose and kept alike in every layer of the cut are held to
+# LM_BF16_VS_F32, and they must be at least LM_MOE_CUT_ALIKE_MIN of all
+LM_MOE_CUT_ALIKE_MIN = 0.5
+# the reference's analytic n_params against the tensors, norm scales
+# aside: it leaves out qwen2-moe's shared gates (24 x 2,048), the RG-LRU's
+# conv and Lambda (18 x 5 x 2,560) and whisper's frontend_proj (384^2), and
+# counts xlstm's sLSTM at a width of 1,365 (not 1,408) with a dense
+# recurrence, less the mLSTM's w_if (12 x 2,048 x 8)
+LM_ANALYTIC_GAP = {"gemma3-4b": 0, "qwen2-moe-a2.7b": 49_152, "recurrentgemma-2b": 230_400,
+                   "xlstm-350m": -13_983_744, "whisper-tiny": 147_456}
 
 
 def _lm_numpy_tree(cfg, seed: int) -> dict:
-    """Weights in the reference's layout (``emb``, ``final_norm``,
-    ``cycles[j]`` stacked over cycles, ``rem[i]``) from
-    ``default_rng(seed)``: fan-in scaled normals, norm scales ~ N(0, 0.1^2)."""
+    """Weights in the reference's layout from ``default_rng(seed)``: for a
+    decoder ``emb``, ``final_norm``, ``cycles[j]`` stacked over cycles and
+    ``rem[i]``; for an encoder-decoder ``emb``, ``frontend_proj``,
+    ``final_norm`` and ``enc``/``dec`` stacked over their layers. Fan-in
+    scaled normals (an expert's or a head's matrix by its own input width),
+    norm scales and biases ~ N(0, 0.1^2)."""
     from repro_torch.models.model import abstract_params
     from repro_torch.models.transformer import _layer_plan
 
     shapes, _ = abstract_params(cfg)
     rng = np.random.default_rng(seed)
-    n_cycles, rem = _layer_plan(cfg)
-    c = len(cfg.pattern)
 
-    def draw(tree: dict, lead: tuple = ()) -> dict:
+    def draw(tree: dict, lead: tuple = (), parent: str = "") -> dict:
         out = {}
         for name, t in tree.items():
             if isinstance(t, dict):
-                out[name] = draw(t, lead)
+                out[name] = draw(t, lead, name)
                 continue
             shape = tuple(t.shape)
-            std = 0.1 if name in ("scale", "bias") else shape[name == "emb"] ** -0.5
+            if name in ("scale", "bias"):
+                std = 0.1
+            elif name == "emb":
+                std = shape[1] ** -0.5
+            elif name == "r_gates" or (len(shape) == 3 and parent == "moe"):
+                std = shape[1] ** -0.5
+            else:
+                std = shape[0] ** -0.5
             out[name] = (rng.standard_normal(lead + shape) * std).astype(np.float32)
         return out
 
-    layers = shapes["layers"]
-    return {"emb": draw({"emb": shapes["emb"]})["emb"],
-            "final_norm": draw(shapes["final_norm"]),
-            "cycles": [draw(layers[j], (n_cycles,)) for j in range(c)],
-            "rem": [draw(layers[n_cycles * c + i]) for i in range(len(rem))]}
+    top = {k: v for k, v in shapes.items() if not isinstance(v, list)}
+    tree = draw(top)
+    if cfg.arch_type == "encdec":
+        tree["enc"] = draw(shapes["enc"][0], (cfg.enc_layers,))
+        tree["dec"] = draw(shapes["dec"][0], (cfg.dec_layers,))
+        return tree
+    n_cycles, rem = _layer_plan(cfg)
+    layers, c = shapes["layers"], len(cfg.pattern)
+    tree["cycles"] = [draw(layers[j], (n_cycles,)) for j in range(c)]
+    tree["rem"] = [draw(layers[n_cycles * c + i]) for i in range(len(rem))]
+    return tree
 
 
 def _host_copy(caches: list) -> list:
     return [{k: v.to("cpu", copy=True) for k, v in c.items()} for c in caches]
 
 
-def _lm_run(model, toks: np.ndarray, prompt: int, steps: int, prefix=None,
+def _lm_run(model, toks: np.ndarray, prompt: int, steps: int, prefix=None, frames=None,
             forward: bool = True) -> dict:
-    """``forward`` over the prompt and the next ``steps`` tokens, ``prefill``
-    of the prompt and ``steps`` decode steps fed those tokens; every output
-    brought to the host."""
+    """``forward`` over the prompt and the next ``steps`` tokens (for an
+    encoder-decoder, ``decoder_forward`` over the encoder's output of
+    ``frames``), ``prefill`` of the prompt and ``steps`` decode steps fed
+    those tokens; every output brought to the host."""
     dev = model.weights.emb.device
     t = torch.from_numpy(toks).to(dev)
     kw = {} if prefix is None else {"prefix_embeds": torch.from_numpy(prefix).to(dev)}
     p0 = prompt + (0 if prefix is None else prefix.shape[1])
     out: dict = {}
     with torch.inference_mode():
+        if frames is None:
+            logits, caches = model.prefill(t[:, :prompt], p0 + steps, **kw)
+            args = ()
+        else:
+            logits, caches, enc = model.prefill(torch.from_numpy(frames).to(dev),
+                                                t[:, :prompt], p0 + steps)
+            out["encode"] = enc.cpu()
+            args = (enc,)
         if forward:
-            out["forward"] = model(t[:, :prompt + steps], **kw)[0].cpu()
-        logits, caches = model.prefill(t[:, :prompt], p0 + steps, **kw)
+            out["forward"] = model(t[:, :prompt + steps], *args, **kw)[0].cpu()
         out["prefill"] = logits.cpu()
         out["prefill_caches"] = _host_copy(caches)  # decode writes into caches
         out["decode"] = []
         for i in range(steps):
             pos = torch.full((toks.shape[0],), p0 + i, device=dev)
-            lg, caches = model.decode_step(caches, t[:, prompt + i:prompt + i + 1], pos)
+            lg, caches = model.decode_step(caches, *args, t[:, prompt + i:prompt + i + 1], pos)
             out["decode"].append(lg.cpu())
         out["caches"] = _host_copy(caches)
     return out
 
 
 def _lm_hold(label: str, card: dict, cpu: dict, tol: dict) -> dict:
-    """Every output of two `_lm_run`s: logits and float cache entries within
-    ``tol``, slot positions equal, int8 K/V within one step (a value on a
-    rounding boundary)."""
+    """Every output of two `_lm_run`s: logits, the encoder's output and
+    float cache and state entries within ``tol``, slot positions equal,
+    int8 K/V within one step (a value on a rounding boundary)."""
     pairs = [("prefill", card["prefill"], cpu["prefill"])]
     pairs += [(f"decode{i}", a, b) for i, (a, b) in enumerate(zip(card["decode"], cpu["decode"]))]
-    if "forward" in card:
-        pairs.append(("forward", card["forward"], cpu["forward"]))
+    pairs += [(k, card[k], cpu[k]) for k in ("forward", "encode") if k in card]
     for key in ("prefill_caches", "caches"):
         for i, (ca, cb) in enumerate(zip(card[key], cpu[key])):
             pairs += [(f"{key}[{i}].{n}", ca[n], cb[n]) for n in ca]
@@ -2124,7 +2205,7 @@ def _lm_hold(label: str, card: dict, cpu: dict, tol: dict) -> dict:
 
 
 def _lm_reduced() -> list:
-    """(a) The reduced dense configurations in f32, card against CPU."""
+    """(a) The reduced configurations in f32, card against CPU."""
     from repro_torch.configs import get_reduced
     from repro_torch.interop import lm_params_from_arrays
 
@@ -2136,42 +2217,49 @@ def _lm_reduced() -> list:
         toks = rng.integers(0, cfg.vocab, size=(2, LM_REDUCED_PROMPT + LM_REDUCED_STEPS))
         prefix = (rng.standard_normal((2, cfg.prefix_len, cfg.d_model)).astype(np.float32)
                   if cfg.prefix_len else None)
+        frames = (rng.standard_normal((2, LM_REDUCED_FRAMES, cfg.d_model)).astype(np.float32)
+                  if cfg.arch_type == "encdec" else None)
         runs = [_lm_run(lm_params_from_arrays(cfg, tree, device=dev), toks,
-                        LM_REDUCED_PROMPT, LM_REDUCED_STEPS, prefix)
+                        LM_REDUCED_PROMPT, LM_REDUCED_STEPS, prefix, frames)
                 for dev in (DEVICE, "cpu")]
         label = arch + ("-int8kv" if over else "")
         rows.append(_lm_hold(label, *runs, LM_INT8_TOL if "kv_cache_dtype" in over else LM_F32_TOL))
     return rows
 
 
-def _lm_wide() -> dict:
-    """(b) gemma3-4b at full width, one pattern cycle (6 layers), f32: two
-    prompts of LM_WIDE_PROMPT tokens and LM_WIDE_STEPS decode steps on the
-    card and on the CPU, the same weights (drawn on the card)."""
+def _lm_wide(arch: str, layers: int, batch: int, prompt: int, steps: int, frames: int,
+             seed: int) -> dict:
+    """(b) ``arch`` at full width, cut to ``layers`` layers (0: whole), f32:
+    ``batch`` prompts and ``steps`` decode steps on the card and on the
+    CPU, the same weights (drawn on the card)."""
     from repro_torch.configs import get_config
     from repro_torch.models.layers import tree_map
     from repro_torch.models.model import Model, build_model
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=len(get_config(LM_ARCH).pattern),
-                              dtype="float32")
-    card = build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(1))
+    over = {"dtype": "float32"} | ({"n_layers": layers} if layers else {})
+    cfg = dataclasses.replace(get_config(arch), **over)
+    card = build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(seed))
     host = Model(cfg, device="cpu", params=tree_map(lambda t: t.cpu(), card.params))
-    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, LM_WIDE_PROMPT + LM_WIDE_STEPS))
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (batch, prompt + steps))
+    fr = rng.standard_normal((batch, frames, cfg.d_model)).astype(np.float32) if frames else None
     t0 = time.perf_counter()
-    runs = [_lm_run(m, toks, LM_WIDE_PROMPT, LM_WIDE_STEPS, forward=False) for m in (card, host)]
-    row = _lm_hold(f"{LM_ARCH} full width, {cfg.n_layers} layers, f32", *runs, LM_WIDE_TOL)
+    runs = [_lm_run(m, toks, prompt, steps, frames=fr, forward=False) for m in (card, host)]
+    what = f"{layers} layers" if layers else "whole"
+    row = _lm_hold(f"{arch} full width, {what}, {batch} x {prompt}, f32", *runs, LM_WIDE_TOL)
     row["seconds"] = time.perf_counter() - t0
     del card, host, runs
     torch.cuda.empty_cache()
     return row
 
 
-def _greedy(model, caches, tok, pos, steps: int, fed: list, logits: list):
-    """``steps`` greedy decode steps from ``tok`` at positions ``pos``,
-    ``pos + 1``, ...: the tokens fed and each step's logits appended."""
+def _greedy(step, caches, tok, pos, steps: int, fed: list, logits: list):
+    """``steps`` greedy decode steps (``step(caches, tokens1, pos)``) from
+    ``tok`` at positions ``pos``, ``pos + 1``, ...: the tokens fed and each
+    step's logits appended."""
     for i in range(steps):
         fed.append(tok)
-        lg, caches = model.decode_step(caches, tok[:, None], pos + i)
+        lg, caches = step(caches, tok[:, None], pos + i)
         logits.append(lg[:, 0])
         tok = lg[:, 0].argmax(-1)
     return caches, tok
@@ -2208,182 +2296,488 @@ def _profiled(fn, steps: int) -> tuple:
     }
 
 
-def _lm_serve(model, batch: int, prompt: int, steps: int, seed: int,
-              profiled: int = 0) -> tuple:
+class _RouteLog:
+    """While active, keeps each MoE routing's group size, ``keep`` and
+    ``gate_idx`` in call order: the route's own tensors, no copy and no
+    launch, so a timed window runs as without the log. ``gate_idx`` of a
+    call of more than one token a group (a prefill, a forward) is kept only
+    with ``tail``, which also copies each of the ``batch`` rows' last
+    ``tail`` positions of the router's probabilities (one small copy a
+    call; the held runs and the bf16-against-f32 cut)."""
+
+    def __init__(self, batch: int, tail: int = 0):
+        self.batch, self.tail = batch, tail
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.mod, self.route, self.calls = moe, moe.route, []
+
+        def logged(cfg, params, x):
+            r = self.route(cfg, params, x)
+            s, probs = x.shape[1], r["probs"]
+            self.calls.append({
+                "s": s, "keep": r["keep"],
+                "gate": r["gate_idx"] if s == 1 or self.tail else None,
+                "probs": (probs.reshape(self.batch, -1, probs.shape[-1])[:, -self.tail:].clone()
+                          if self.tail else None)})
+            return r
+
+        moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.route
+
+    def dropped_share(self, moe_layers: int) -> tuple:
+        """Dropped (token, choice) pairs over all pairs of the calls of
+        more than one token a group (prefills), and the same for each MoE
+        layer."""
+        kept = [(int(c["keep"].sum()), c["keep"].numel()) for c in self.calls if c["s"] > 1]
+
+        def share(pairs):
+            return 1.0 - sum(a for a, _ in pairs) / sum(n for _, n in pairs)
+
+        return share(kept), [share(kept[i::moe_layers]) for i in range(moe_layers)]
+
+    def picked_per_step(self, moe_layers: int) -> list:
+        """Distinct experts each decode step's router picked, summed over
+        its MoE layers."""
+        picks = [int(torch.unique(c["gate"]).numel()) for c in self.calls if c["s"] == 1]
+        return [sum(picks[i:i + moe_layers]) for i in range(0, len(picks), moe_layers)]
+
+    def _rows(self, call) -> torch.Tensor:
+        g = call["gate"]
+        return g.reshape(self.batch, -1, g.shape[-1])
+
+    def flips(self, layers: int, steps: int) -> tuple:
+        """For a held serving run logged with ``tail = steps + 1`` (warm-up
+        prefill, prefill, ``steps`` decode steps, forward; no profiled
+        steps): the positions (batch, steps + 1) — the prefill's last and
+        each decode step's — where some layer's top-k set differs from
+        forward's at that position, and the largest log-probability gap
+        between a swapped-in and a swapped-out expert on either path at
+        each such position's first such layer (past it the position's
+        states part, and so may its later routings)."""
+        calls = self.calls
+        pre, dec, fwd = calls[layers:2 * layers], calls[2 * layers:-layers], calls[-layers:]
+
+        def at(call, pos):  # pos counts from the end of the call's positions
+            return self._rows(call)[:, pos].tolist(), call["probs"][:, pos].log()
+
+        flipped = torch.zeros((self.batch, steps + 1), dtype=torch.bool)
+        worst = 0.0
+        for j, li in itertools.product(range(steps + 1), range(layers)):
+            mine = at(pre[li], -1) if j == 0 else at(dec[(j - 1) * layers + li], -1)
+            theirs = at(fwd[li], j - steps - 1)
+            for b in range(self.batch):
+                a, f = set(mine[0][b]), set(theirs[0][b])
+                if a == f or flipped[b, j]:
+                    continue
+                flipped[b, j] = True
+                for lp in (mine[1][b], theirs[1][b]):
+                    for ea, ef in itertools.product(a - f, f - a):
+                        worst = max(worst, abs((lp[ea] - lp[ef]).item()))
+        return flipped, worst
+
+    def routed_alike(self, other: "_RouteLog") -> torch.Tensor:
+        """(batch, positions): where every layer chose the same experts
+        and kept the same of them in this log and ``other``, two forward
+        runs over the same tokens logged with ``tail``."""
+        def sig(call):
+            g = self._rows(call)
+            kept = torch.where(call["keep"].reshape(g.shape), g, -1)
+            return torch.cat([g.sort(-1).values, kept.sort(-1).values], -1)
+
+        same = None
+        for a, b in zip(self.calls, other.calls, strict=True):
+            eq = (sig(a) == sig(b)).all(-1)
+            same = eq if same is None else same & eq
+        return same
+
+
+def _lm_serve(model, batch: int, prompt: int, steps: int, seed: int, profiled: int = 0,
+              hold: bool = True, frames: int = 0, max_seq: int = 0) -> tuple:
     """``examples/serve_lm.py``'s loop: prefill ``batch`` prompts of
-    ``prompt`` tokens from ``default_rng(seed)`` (timed after one warm-up
-    prefill of the same shape), then ``steps`` greedy
-    decode steps (the last ``profiled`` under the profiler). Each step's
-    logits, and the prefill's last, are held to ``forward`` over the prompt
-    and the tokens fed, at that position; the greedy tokens to forward's
-    where its top-2 gap exceeds the tolerance. Returns (row, prompts, the
+    ``prompt`` tokens from ``default_rng(seed)`` (with ``frames`` encoder
+    frames for an encoder-decoder; timed after one warm-up prefill of the
+    same shape), then ``steps`` greedy decode steps (the last ``profiled``
+    under the profiler). With ``hold``, each step's logits, and the
+    prefill's last, are held to ``forward`` (``decoder_forward``) over the
+    prompt and the tokens fed, at that position, and the greedy tokens to
+    forward's where its top-2 gap exceeds the tolerance (a MoE's positions
+    that decode and forward routed apart are counted, not held, within
+    LM_MOE_ALIKE_MIN and LM_MOE_FLIP_GAP); without, the logits must be
+    finite. A MoE's routing is logged: the prefill's dropped share and the
+    experts each decode step picked. Returns (row, prompts, frames, the
     prefill's last logits)."""
     cfg = model.cfg
-    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, prompt))
-    toks = torch.from_numpy(prompts).to(DEVICE)
-    row: dict = {"batch": batch, "prompt": prompt, "decode_steps": steps}
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt))).to(DEVICE)
+    fr = (torch.from_numpy(rng.standard_normal((batch, frames, cfg.d_model)).astype(np.float32))
+          .to(DEVICE) if frames else None)
+    max_seq = max_seq or prompt + steps
+    row: dict = {"batch": batch, "prompt": prompt, "decode_steps": steps, "max_seq": max_seq,
+                 "frames": frames}
+    moe_layers = 0
+    if cfg.arch_type != "encdec":
+        from repro_torch.models.transformer import layer_kinds
+
+        moe_layers = layer_kinds(cfg).count("attn+moe")
+
+    def prefill():
+        if fr is None:
+            return model.prefill(toks, max_seq) + (None,)
+        return model.prefill(fr, toks, max_seq)
+
     fed: list = []
-    with torch.inference_mode():
-        model.prefill(toks, prompt + steps)  # warm-up: this shape's first call
+    with torch.inference_mode(), _RouteLog(batch, steps + 1 if hold else 0) as routes:
+        prefill()  # warm-up: this shape's first call
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        last, caches = model.prefill(toks, prompt + steps)
+        last, caches, enc = prefill()
         torch.cuda.synchronize()
         row["prefill_s"] = time.perf_counter() - t0
+        args = () if enc is None else (enc,)
+
+        def step(c, tok1, pos):
+            return model.decode_step(c, *args, tok1, pos)
+
         logits = [last[:, -1]]
         tok = last[:, -1].argmax(-1)
         pos = torch.full((batch,), prompt, device=DEVICE)
         timed = steps - profiled
         t0 = time.perf_counter()
-        caches, tok = _greedy(model, caches, tok, pos, timed, fed, logits)
+        caches, tok = _greedy(step, caches, tok, pos, timed, fed, logits)
         torch.cuda.synchronize()
         row["decode_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / timed
         row["decode_tokens_per_s"] = batch * 1e3 / row["decode_ms_per_step"]
         row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         if profiled:
             (caches, tok), row["decode_profile"] = _profiled(
-                lambda: _greedy(model, caches, tok, pos + timed, profiled, fed, logits),
+                lambda: _greedy(step, caches, tok, pos + timed, profiled, fed, logits),
                 profiled)
         row["cache_gb"] = sum(t.numel() * t.element_size() for c in caches
                               for t in c.values()) / 1e9
         del caches
         got = torch.stack(logits, 1)                       # (b, steps + 1, V)
-        full = model(torch.cat([toks, torch.stack(fed, 1)], 1))[0]
-        want = full[:, prompt - 1:].clone()
-        del full
+        if hold:
+            full = model(torch.cat([toks, torch.stack(fed, 1)], 1), *args)[0]
+            want = full[:, prompt - 1:].clone()
+            del full
+    flipped = torch.zeros(got.shape[:2], dtype=torch.bool)
+    if moe_layers:
+        picks = routes.picked_per_step(moe_layers)
+        dropped, by_layer = routes.dropped_share(moe_layers)
+        row["moe"] = {"prefill_dropped_share": dropped,
+                      "prefill_dropped_share_by_layer": by_layer,
+                      "decode_experts_picked_per_step": sum(picks) / len(picks),
+                      "experts_per_step": moe_layers * (cfg.moe_pad_to or cfg.moe_experts),
+                      "capacity_factor": cfg.moe_capacity}
+        if hold:
+            flipped, gap = routes.flips(moe_layers, steps)
+            row["moe"].update(positions_routed_apart=int(flipped.sum()),
+                              routed_apart_max_logprob_gap=gap)
+        log(f"[lm] moe routing {cfg.name} {batch}x{prompt} {json.dumps(row['moe'])}")
+    del routes
+    if not hold:
+        row["finite"] = bool(torch.isfinite(got).all())
+        log(f"[lm] serve {json.dumps(row)}")
+        if not row["finite"]:
+            raise AssertionError(f"lm serve {cfg.name} {batch}x{prompt}: logits not finite")
+        return row, toks, fr, last[:, -1]
+    same = ~flipped.to(got.device)                         # positions routed alike
     diff = (got - want).abs()
-    elem_ok = bool((diff <= LM_BF16_ATOL + LM_BF16_RTOL * want.abs()).all())
-    norm = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    elem_ok = bool((diff <= LM_BF16_ATOL + LM_BF16_RTOL * want.abs())[same].all())
+    norms = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    norm = norms[same].max().item()
     top = want.topk(2, dim=-1)
     decided = (top.values[..., 0] - top.values[..., 1]) > (
         LM_BF16_ATOL + LM_BF16_RTOL * top.values[..., 0].abs())
     agree = got.argmax(-1) == top.indices[..., 0]
     row["vs_forward"] = {
-        "positions": int(got.shape[0] * got.shape[1]), "max_abs_diff": diff.max().item(),
-        "mean_abs_diff": diff.mean().item(), "max_norm_rel": norm,
-        "tokens_decided": int(decided.sum()), "tokens_agree": int(agree.sum()),
-        "decided_disagree": int((decided & ~agree).sum()),
-        "ok": elem_ok and norm <= LM_BF16_NORM and bool(agree[decided].all()),
+        "positions": int(got.shape[0] * got.shape[1]), "max_abs_diff": diff[same].max().item(),
+        "mean_abs_diff": diff[same].mean().item(), "max_norm_rel": norm,
+        "tokens_decided": int(decided[same].sum()), "tokens_agree": int(agree[same].sum()),
+        "decided_disagree": int((decided & ~agree & same).sum()),
+        "ok": elem_ok and norm <= LM_BF16_NORM and bool(agree[decided & same].all()),
     }
+    if moe_layers:
+        row["vs_forward"]["positions_routed_alike"] = int(same.sum())
+        row["vs_forward"]["routed_apart_max_norm_rel"] = (norms[~same].max().item()
+                                                          if (~same).any() else 0.0)
+        row["vs_forward"]["ok"] &= (same.float().mean().item() >= LM_MOE_ALIKE_MIN
+                                    and row["moe"]["routed_apart_max_logprob_gap"]
+                                    <= LM_MOE_FLIP_GAP)
     log(f"[lm] serve {json.dumps(row)}")
     if not row["vs_forward"]["ok"]:
-        raise AssertionError(f"lm serve {batch}x{prompt}: decode against forward "
+        raise AssertionError(f"lm serve {cfg.name} {batch}x{prompt}: decode against forward "
                              f"{row['vs_forward']}")
-    return row, toks, last[:, -1]
+    return row, toks, fr, last[:, -1]
 
 
-def _lm_bounds(cfg, params, batch: int, prompt: int, steps: int) -> dict:
-    """The least time the card could take: a decode step reads every weight
-    once and the K/V of the slots its attention needs (the last step's);
-    the prefill's operations are the matrix products (logits at the last
-    position only) and the attention of the causal/window band."""
+def _lm_f32_decode(cfg) -> dict:
+    """``cfg`` at full width and depth in f32 and capacity 16 (nothing
+    drops), weights from a generator seeded 0 on the card: LM_MOE_F32's
+    prompts through ``forward``, ``prefill`` and decode steps fed the next
+    tokens, each step and the prefill's last logits held to forward at
+    their position within LM_WIDE_TOL, no position excused."""
+    from repro_torch.models.model import build_model
+
+    batch, prompt, steps = LM_MOE_F32
+    cfg = dataclasses.replace(cfg, dtype="float32", moe_capacity=16.0)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(0))
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (batch, prompt + steps))
+    out = _lm_run(model, toks, prompt, steps)
+    del model
+    torch.cuda.empty_cache()
+    fwd = out["forward"]
+    pairs = [(out["prefill"][:, 0], fwd[:, prompt - 1])]
+    pairs += [(lg[:, 0], fwd[:, prompt + i]) for i, lg in enumerate(out["decode"])]
+    row = {"layers": cfg.n_layers, "dtype": "float32", "capacity_factor": 16.0,
+           "tokens": [batch, prompt], "decode_steps": steps,
+           "max_abs_diff": max((a - b).abs().max().item() for a, b in pairs),
+           "tol": LM_WIDE_TOL, "seconds": time.perf_counter() - t0,
+           "ok": all(torch.allclose(a, b, **LM_WIDE_TOL) for a, b in pairs)}
+    log(f"[lm] f32 decode against forward {cfg.name} {json.dumps(row)}")
+    if not row["ok"]:
+        raise AssertionError(f"lm {cfg.name}: f32 decode against forward {row}")
+    return row
+
+
+def _lm_bounds(model, batch: int, prompt: int, steps: int, frames: int = 0,
+               picked: float = 0.0) -> dict:
+    """The least time the card could take. A decode step reads the weights
+    it needs once (for a MoE only the experts its router picked, ``picked``
+    summed over the layers; for an encoder-decoder the decoder's and the
+    encoder output its cross K/V are projected from), the K/V of the slots
+    its attention needs (the last step's) and the recurrent states (read
+    and written). The prefill's operations are the matrix products of
+    every token (a MoE's routed experts counted top-k a token; logits at
+    the last position), the attention of the causal/window band (and the
+    encoder's and the cross-attention's), and the mLSTM's chunk products."""
     from repro_torch.models.layers import tree_leaves
-    from repro_torch.models.transformer import layer_kinds
 
-    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    cfg, params = model.cfg, model.params
     elt = cfg.torch_dtype.itemsize
-    kinds = layer_kinds(cfg)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def mats(tree):  # parameters a token multiplies with (no norm scales, no Lambda)
+        return sum(t.numel() for t in tree_leaves(tree) if t.dim() >= 2)
+
+    weight_bytes = nbytes(params)
     kv_row = 2 * batch * cfg.n_kv * cfg.head_dim * elt         # k and v of one slot
-    slots = sum(min(prompt + steps, cfg.window) if k == "local+mlp" else prompt + steps
-                for k in kinds)
-    matrices = cfg.n_params() - cfg.vocab * cfg.d_model
-    keys = 0
-    for k in kinds:
-        p = np.arange(prompt, dtype=np.int64) + 1
-        keys += int(np.minimum(p, cfg.window).sum() if k == "local+mlp" else p.sum())
-    attn_ops = 4 * batch * keys * cfg.n_heads * cfg.head_dim
-    prefill_ops = 2 * batch * prompt * matrices + 2 * batch * cfg.d_model * cfg.vocab + attn_ops
+    n = prompt + steps
+
+    def band(q: int, window=None) -> int:  # causal (query, key) pairs of q positions
+        return int(np.minimum(np.arange(1, q + 1), window or q).sum())
+
+    def attn(pairs: int) -> int:           # score and PV products over those pairs
+        return 4 * batch * pairs * cfg.n_heads * cfg.head_dim
+
+    if cfg.arch_type == "encdec":
+        step_bytes = (nbytes(params["dec"]) + nbytes(params["emb"])
+                      + nbytes(params["final_norm"]) + batch * frames * cfg.d_model * elt
+                      + cfg.dec_layers * n * kv_row)
+        tokens_x_params = (frames * (mats(params["frontend_proj"])
+                                     + sum(mats(p) for p in params["enc"]))
+                           + prompt * sum(mats(p) for p in params["dec"]))
+        attn_ops = (cfg.enc_layers * attn(frames * frames)
+                    + cfg.dec_layers * (attn(band(prompt)) + attn(prompt * frames)))
+    else:
+        from repro_torch.models.blocks import _mlstm_cfg
+        from repro_torch.models.transformer import layer_kinds
+
+        states = model.init_caches(batch, 1)
+        step_bytes, active, attn_ops, expert_bytes = weight_bytes, 0, 0, 0
+        for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
+            active += mats(p)
+            if kind == "attn+moe":
+                moe = p["moe"]
+                per_expert = sum(moe[k][0].numel() for k in ("wi", "wg_up", "wo"))
+                e = moe["wi"].shape[0]
+                active -= (e - cfg.moe_top_k) * per_expert
+                expert_bytes = per_expert * elt
+                step_bytes -= e * expert_bytes
+            if kind in ("rglru+mlp", "mlstm", "slstm"):
+                step_bytes += 2 * nbytes(states[i])
+            elif kind == "local+mlp":
+                step_bytes += min(n, cfg.window) * kv_row
+                attn_ops += attn(band(prompt, cfg.window))
+            else:
+                step_bytes += n * kv_row
+                attn_ops += attn(band(prompt))
+            if kind == "mlstm":
+                mc = _mlstm_cfg(cfg)
+                ck = min(mc.chunk, prompt)
+                pairs = (prompt // ck) * ck * (ck + 1) // 2 + band(prompt % ck)
+                attn_ops += 4 * batch * mc.n_heads * mc.head_dim * (pairs + prompt * mc.head_dim)
+        step_bytes += picked * expert_bytes
+        tokens_x_params = prompt * active
+    prefill_ops = 2 * batch * tokens_x_params + 2 * batch * cfg.d_model * cfg.vocab + attn_ops
     prefill_ms = {"operations": 1e3 * prefill_ops / BF16_DENSE_OPS_PER_S,
                   "bytes": 1e3 * weight_bytes / HBM_BYTES_PER_S}
     by = max(prefill_ms, key=prefill_ms.get)
     return {
-        "weight_gb": weight_bytes / 1e9, "kv_read_gb": slots * kv_row / 1e9,
-        "decode_bound_ms": 1e3 * (weight_bytes + slots * kv_row) / HBM_BYTES_PER_S,
-        "decode_bound_by": "bytes",
+        "weight_gb": weight_bytes / 1e9, "decode_read_gb": step_bytes / 1e9,
+        "decode_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S, "decode_bound_by": "bytes",
         "prefill_ops": prefill_ops, "prefill_attention_ops": attn_ops,
         "prefill_bound_ms": prefill_ms[by], "prefill_bound_by": by,
     }
 
 
-def phase_lm() -> None:
-    """The dense-decoder LM serving path of the port on the card, f32 with
-    TF32 off, bf16 with f32 reductions.
+def _bf16_vs_f32(model, prompts, frames, last, layers: int) -> dict:
+    """The model's bf16 logits against the same weights in f32: the
+    prefill's last logits of the serving prompts in norm, or with
+    ``layers`` a cut of the first ``layers`` layers, its forward logits at
+    each position of ``prompts`` that both dtypes routed alike (a MoE's
+    routing flips on near-ties between the two dtypes and moves such a
+    position whole), at least LM_MOE_CUT_ALIKE_MIN of them."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model
 
-    (a) The reduced olmo-1b, deepseek-7b (also with an int8 KV cache),
-        gemma-7b, gemma3-4b and internvl2-76b in f32 (numpy weights in the
-        reference's layout, carried across by ``lm_params_from_arrays``):
-        forward, prefill and LM_REDUCED_STEPS decode steps on the card
-        against the same on the CPU (which the tier-1 tests hold to the
-        reference) within LM_F32_TOL.
-    (b) gemma3-4b at full width, 6 layers, f32: two 1,040-token prompts
-        (past the window and the KV chunk) on the card against the CPU
-        within LM_WIDE_TOL.
-    (c) gemma3-4b at full width and depth in bf16, weights from a generator
-        seeded 0 on the card: 4 x 512-token prompts (attention_full) and 8
-        decode steps, then the serving run, 4 x 4,096-token prompts
-        (attention_chunked_q) and 32 greedy decode steps (max_seq 4,128);
-        each step held to forward, and the serving prefill's last logits to
-        an f32 copy of the weights within LM_BF16_VS_F32 in norm.
-    (d) ``[lm]`` lines: prefill s, decode ms a step and tokens/s, peak
-        memory, the parameter count and the bounds.
-    """
+    cfg, params = model.cfg, model.params
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        params = {**params, "layers": params["layers"][:layers]}
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), device=DEVICE,
+                params=tree_map(lambda t: t.float(), params))
+    batch, n = prompts.shape
+    with torch.inference_mode():
+        if layers:
+            with _RouteLog(batch, n) as r16:
+                got = Model(cfg, device=DEVICE, params=params)(prompts)[0]
+            with _RouteLog(batch, n) as r32:
+                want = m32(prompts)[0]
+            alike = (r16.routed_alike(r32) if r16.calls
+                     else torch.ones((batch, n), dtype=torch.bool, device=DEVICE)).flatten()
+            del r16, r32
+        elif frames is None:
+            got, want = last, m32.prefill(prompts, n)[0][:, -1]
+        else:
+            got, want = last, m32.prefill(frames, prompts, n)[0][:, -1]
+        per = ((got - want).norm(dim=-1) / want.norm(dim=-1)).flatten()
+        row = {"layers": layers or cfg.n_layers, "positions": int(per.numel()),
+               "tokens": list(prompts.shape), "logits_norm_rel": ((got - want).norm()
+                                                                  / want.norm()).item(),
+               "median_position_norm_rel": per.median().item(),
+               "max_position_norm_rel": per.max().item(),
+               "positions_over_limit": int((per > LM_BF16_VS_F32).sum()),
+               "limit": LM_BF16_VS_F32}
+        rel = row["logits_norm_rel"]
+        if layers:
+            share = alike.float().mean().item()
+            rel = per[alike].max().item() if share else float("inf")
+            row.update(positions_routed_alike=int(alike.sum()), alike_min=LM_MOE_CUT_ALIKE_MIN,
+                       routed_alike_max_norm_rel=rel,
+                       routed_apart_max_norm_rel=(per[~alike].max().item()
+                                                  if share < 1 else 0.0))
+    del m32, got, want
+    torch.cuda.empty_cache()
+    log(f"[lm] bf16 against f32 weights {cfg.name} {json.dumps(row)}")
+    if rel > LM_BF16_VS_F32:
+        raise AssertionError(f"lm {cfg.name}: bf16 logits {rel:.4f} from f32 in norm")
+    if layers and share < LM_MOE_CUT_ALIKE_MIN:
+        raise AssertionError(f"lm {cfg.name}: {share:.3f} of the positions routed alike "
+                             f"in bf16 and f32, under {LM_MOE_CUT_ALIKE_MIN}")
+    return row
+
+
+def _lm_full(arch: str, spec: dict) -> dict:
+    """(c) and (d) for one model of LM_SERVED at full width and depth in
+    bf16, weights from a generator seeded 0 on the card."""
     from repro_torch.configs import get_config
-    from repro_torch.models.layers import count_params, tree_leaves, tree_map
+    from repro_torch.models.layers import count_params
     from repro_torch.models.model import Model, build_model
 
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    params = model.params
+    elements = count_params(params)
+    norms = sum(t.numel() for name, t in model.named_parameters() if "norm" in name)
+    rec: dict = {"model": {
+        "arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers, "n_params": cfg.n_params(),
+        "tensor_elements": elements, "norm_elements": norms,
+        "analytic_gap": LM_ANALYTIC_GAP[arch],
+        "weight_gb": sum(t.numel() * t.element_size() for t in model.parameters()) / 1e9,
+        "init_s": time.perf_counter() - t0}}
+    log(f"[lm] model {json.dumps(rec['model'])}")
+    if elements - norms != cfg.n_params() + LM_ANALYTIC_GAP[arch]:
+        raise AssertionError(f"lm {arch}: {elements} parameters, {norms} of them norm "
+                             f"scales, against n_params {cfg.n_params()} and the gap "
+                             f"{LM_ANALYTIC_GAP[arch]}")
+    frames = spec.get("frames", 0)
+    kw = {"frames": frames, "max_seq": spec.get("max_seq", 0)}
+    short_prompts = None
+    if "short" in spec:
+        short_cfg = dataclasses.replace(cfg, moe_capacity=spec.get("short_capacity",
+                                                                    cfg.moe_capacity))
+        short_model = Model(short_cfg, device=DEVICE, params=params)
+        rec["short"], short_prompts, _, _ = _lm_serve(short_model, *spec["short"], seed=2, **kw)
+        del short_model
+    serve, prompts, fr, last = _lm_serve(model, *spec["serve"], seed=0,
+                                         profiled=spec.get("profiled", 1),
+                                         hold=spec.get("hold_serve", True), **kw)
+    rec["serve"] = serve
+    picked = serve.get("moe", {}).get("decode_experts_picked_per_step", 0.0)
+    cut = spec.get("f32_layers", 0)
+    rec["bf16_vs_f32"] = _bf16_vs_f32(model, short_prompts if cut else prompts, fr, last, cut)
+    bounds = _lm_bounds(model, *spec["serve"], frames=frames, picked=picked)
+    rec["bounds"] = bounds
+    log(f"[lm] bounds {arch} {json.dumps(bounds)}")
+    rec["summary"] = {
+        "arch": arch, "prefill_s": serve["prefill_s"],
+        "prefill_bound_s": bounds["prefill_bound_ms"] / 1e3,
+        "decode_ms_per_step": serve["decode_ms_per_step"],
+        "decode_bound_ms": bounds["decode_bound_ms"],
+        "decode_tokens_per_s": serve["decode_tokens_per_s"], "peak_gb": serve["peak_gb"],
+        "n_params": cfg.n_params(), "tensor_elements": elements,
+        "decode_device_idle_share": serve.get("decode_profile", {}).get("device_idle_share"),
+    }
+    log(f"[lm] summary {json.dumps(rec['summary'])}")
+    del model, params, prompts, fr, last, short_prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    if spec.get("f32_decode"):  # once the bf16 weights are freed: 59.3 GB in f32
+        rec["f32_decode"] = _lm_f32_decode(cfg)
+    return rec
+
+
+def phase_lm() -> None:
+    """The LM serving paths of the port on the card, f32 with TF32 off,
+    bf16 with f32 reductions.
+
+    (a) The reduced configurations of every family in f32 (numpy weights
+        in the reference's layout, carried across by
+        ``lm_params_from_arrays``): forward, prefill (the encoder's output
+        too) and LM_REDUCED_STEPS decode steps on the card against the same
+        on the CPU (which the tier-1 tests hold to the reference) within
+        LM_F32_TOL, caches and recurrent states included.
+    (b) LM_WIDE: each family at full width, cut to one pattern cycle
+        (whisper whole), f32, on the card against the CPU within
+        LM_WIDE_TOL.
+    (c) LM_SERVED: gemma3-4b, qwen2-moe-a2.7b, recurrentgemma-2b, xlstm-350m
+        and whisper-tiny at full width and depth in bf16 through
+        ``build_model``, ``prefill`` and ``decode_step``, 32 greedy decode
+        steps, each held to forward (the MoE's on a 4 x 512 run at
+        capacity 16, where nothing drops), and bf16 against f32 weights.
+    (d) ``[lm]`` lines per model: prefill s, decode ms a step and tokens/s,
+        peak memory, the parameter count, the bounds, one decode step's
+        profile, and the MoE's dropped share and experts picked.
+    """
     t_phase = time.perf_counter()
     # the reference accumulates bf16 products in f32: no reduced-precision
     # split-K reductions in cuBLAS either
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     rec: dict = {"reduced": _lm_reduced()}
-    rec["wide"] = _lm_wide()
-
-    cfg = get_config(LM_ARCH)
-    t0 = time.perf_counter()
-    model = build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(0))
-    torch.cuda.synchronize()
-    params = model.params
-    norms = sum(t.numel() for layer in params["layers"]
-                for name in ("norm1", "norm2") for t in tree_leaves(layer[name]))
-    norms += sum(t.numel() for t in tree_leaves(params["final_norm"]))
-    rec["model"] = {"arch": LM_ARCH, "dtype": cfg.dtype, "layers": cfg.n_layers,
-                    "n_params": cfg.n_params(), "tensor_elements": count_params(params),
-                    "norm_elements": norms, "init_s": time.perf_counter() - t0}
-    log(f"[lm] model {json.dumps(rec['model'])}")
-    if count_params(params) - norms != cfg.n_params():
-        raise AssertionError(f"lm: {count_params(params) - norms} matrix parameters "
-                             f"against the analytic {cfg.n_params()}")
-    short, _, _ = _lm_serve(model, *LM_SHORT, seed=2)
-    serve, prompts, last = _lm_serve(model, *LM_SERVE, seed=0, profiled=LM_PROFILED_STEPS)
-    # the same weights in f32
-    m32 = Model(dataclasses.replace(cfg, dtype="float32"), device=DEVICE,
-                params=tree_map(lambda t: t.float(), params))
-    with torch.inference_mode():
-        l32, c32 = m32.prefill(prompts, prompts.shape[1])
-        rel = ((last - l32[:, -1]).norm() / l32[:, -1].norm()).item()
-    del m32, c32, l32
-    torch.cuda.empty_cache()
-    rec["bf16_vs_f32"] = {"prefill_last_logits_norm_rel": rel, "limit": LM_BF16_VS_F32}
-    log(f"[lm] bf16 against f32 weights {json.dumps(rec['bf16_vs_f32'])}")
-    if rel > LM_BF16_VS_F32:
-        raise AssertionError(f"lm: bf16 prefill logits {rel:.4f} from f32 in norm")
-    rec["short"], rec["serve"] = short, serve
-    bounds = _lm_bounds(cfg, params, *LM_SERVE)
-    rec["bounds"] = bounds
-    log(f"[lm] bounds {json.dumps(bounds)}")
-    summary = {
-        "prefill_s": serve["prefill_s"], "prefill_bound_s": bounds["prefill_bound_ms"] / 1e3,
-        "decode_ms_per_step": serve["decode_ms_per_step"],
-        "decode_bound_ms": bounds["decode_bound_ms"],
-        "decode_tokens_per_s": serve["decode_tokens_per_s"], "peak_gb": serve["peak_gb"],
-        "n_params": cfg.n_params(),
-        "decode_device_idle_share": serve.get("decode_profile", {}).get("device_idle_share"),
-    }
-    rec["summary"] = summary
-    log(f"[lm] summary {json.dumps(summary)}")
-    del model, params, prompts, last
-    torch.cuda.empty_cache()
+    rec["wide"] = [_lm_wide(*w) for w in LM_WIDE]
+    rec["models"] = {arch: _lm_full(arch, spec) for arch, spec in LM_SERVED.items()}
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"[lm] phase {rec['seconds']:.1f} s")
     RECORD["phases"]["lm"] = rec

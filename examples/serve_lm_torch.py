@@ -6,8 +6,11 @@ greedy decode loop over a KV cache.
 
 The same flags as ``examples/serve_lm.py`` (the JAX package's script) plus
 ``--device`` (default ``cuda``; without a GPU pass ``--device cpu``). Like
-that script it runs the reduced configuration of ``--arch``, with weights
-drawn from a generator seeded 0.
+that script it runs the reduced configuration of ``--arch``, any
+decoder-only one (dense, MoE such as ``qwen2-moe-a2.7b``, recurrent such as
+``recurrentgemma-2b`` or ``xlstm-350m``), with weights drawn from a
+generator seeded 0; the encoder-decoder (whisper) is driven through
+``Model.prefill(frames, tokens, max_seq)`` instead.
 """
 import argparse
 import sys
@@ -38,7 +41,8 @@ def main():
 
     cfg = get_reduced(args.arch)
     if cfg.arch_type == "encdec":
-        raise SystemExit("the port has no encoder-decoder yet; this script is decoder-only")
+        raise SystemExit("this script is decoder-only; serve whisper through "
+                         "Model.prefill(frames, tokens, max_seq)")
     device = torch.device(args.device)
     model = build_model(cfg, device=device)  # weights from a generator seeded 0
     max_seq = args.prompt_len + args.tokens

@@ -16,9 +16,10 @@ the very same instance and operands to the port:
   :class:`~repro_torch.graphs.delta.GraphDelta` from it. A prior converged
   state crosses as its numpy ``x``;
 * :func:`lm_params_from_arrays` loads the numpy form of a reference LM
-  parameter tree into the port's :class:`~repro_torch.models.model.Model`,
-  and :func:`lm_caches_from_arrays` turns a reference decode-cache tree into
-  the port's per-layer caches.
+  parameter tree (decoder-only or encoder-decoder) into the port's
+  :class:`~repro_torch.models.model.Model`, and :func:`lm_caches_from_arrays`
+  turns a reference decode-cache tree (K/V caches and recurrent states)
+  into the port's per-layer caches.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 from repro_torch.engine.algorithms import AlgoInstance, Semiring
 from repro_torch.graphs.delta import GraphDelta
 from repro_torch.models.layers import tree_map
-from repro_torch.models.model import Model, ModelConfig
+from repro_torch.models.model import Model, ModelConfig, abstract_params
 from repro_torch.models.transformer import _layer_plan
 
 _ARRAY_FIELDS = ("src", "dst", "w", "x0", "c", "fixed")
@@ -140,23 +141,47 @@ def _per_layer(cfg: ModelConfig, cycles: list, rem: list) -> list:
     return layers + list(rem)
 
 
+def _unstack(tree: dict, n: int) -> list:
+    """A tree stacked over a leading axis of ``n`` as ``n`` trees."""
+    return [tree_map(lambda a, i=i: a[i], tree) for i in range(n)]
+
+
+def _as_dtypes(tree: Any, like: Any, device) -> Any:
+    """``tree``'s arrays as tensors on ``device``, each of the dtype of the
+    tensor at the same place in ``like``."""
+    if isinstance(tree, dict):
+        return {k: _as_dtypes(v, like[k], device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_as_dtypes(v, w, device) for v, w in zip(tree, like)]
+    return _tensor(tree, device, like.dtype)
+
+
 def lm_params_from_arrays(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
-    """The port's Model holding the reference's parameters: ``tree`` is the
-    reference's parameter pytree as numpy (``emb``, ``final_norm``,
-    ``cycles[j]`` stacked over cycles, ``rem[i]``); every array is cast to
-    the model dtype."""
-    dtype = cfg.torch_dtype
-    layers = _per_layer(cfg, tree["cycles"], tree["rem"])
-    params = {
-        "emb": _tensor(tree["emb"], device, dtype),
-        "final_norm": tree_map(lambda a: _tensor(a, device, dtype), tree["final_norm"]),
-        "layers": [tree_map(lambda a: _tensor(a, device, dtype), p) for p in layers],
-    }
-    return Model(cfg, device=device, params=params)
+    """The port's Model holding the reference's parameters. ``tree`` is the
+    reference's parameter pytree as numpy: for a decoder ``emb``,
+    ``final_norm``, ``cycles[j]`` stacked over cycles and ``rem[i]``; for an
+    encoder-decoder ``emb``, ``frontend_proj``, ``final_norm`` and
+    ``enc``/``dec`` stacked over their layers. Every array is cast to the
+    dtype the port gives that parameter (the model dtype, f32 for the
+    RG-LRU's ``lambda``)."""
+    shapes, _ = abstract_params(cfg)
+    if cfg.arch_type == "encdec":
+        ours = {k: tree[k] for k in ("emb", "frontend_proj", "final_norm")}
+        ours["enc"] = _unstack(tree["enc"], cfg.enc_layers)
+        ours["dec"] = _unstack(tree["dec"], cfg.dec_layers)
+    else:
+        ours = {"emb": tree["emb"], "final_norm": tree["final_norm"],
+                "layers": _per_layer(cfg, tree["cycles"], tree["rem"])}
+    return Model(cfg, device=device, params=_as_dtypes(ours, shapes, device))
 
 
 def lm_caches_from_arrays(cfg: ModelConfig, tree: dict, device="cuda") -> list[dict]:
-    """The port's per-layer decode caches from a reference cache tree
-    (``{"cycles": [...], "rem": [...]}`` as numpy), dtypes kept."""
-    layers = _per_layer(cfg, tree["cycles"], tree["rem"])
+    """The port's per-layer decode caches from a reference cache tree as
+    numpy, dtypes kept: ``{"cycles": [...], "rem": [...]}`` of K/V caches
+    and recurrent states for a decoder, one dict stacked over ``dec_layers``
+    for an encoder-decoder."""
+    if cfg.arch_type == "encdec":
+        layers = _unstack(tree, cfg.dec_layers)
+    else:
+        layers = _per_layer(cfg, tree["cycles"], tree["rem"])
     return [tree_map(lambda a: _tensor(a, device), c) for c in layers]

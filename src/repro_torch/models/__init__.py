@@ -1,4 +1,5 @@
-"""The dense-decoder LM stack: layers, attention, blocks, the transformer
+"""The LM stack: layers, attention, the MoE, the recurrent blocks (RG-LRU,
+mLSTM, sLSTM), blocks, the decoder-only transformer, the encoder-decoder
 and the model entry point (``build_model``)."""
 from repro_torch.models.model import ModelConfig, build_model
 

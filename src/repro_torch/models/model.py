@@ -4,9 +4,9 @@ examples/serve_lm_torch.py.
 :class:`Model` is an ``nn.Module`` that holds its parameters, registered
 under the names of the parameter tree (``weights.emb``,
 ``weights.final_norm.scale``, ``weights.layers.3.attn.wq``, ...);
-:attr:`Model.params` hands that tree to the functions of ``transformer``.
-This slice serves, so the parameters are frozen (``requires_grad=False``).
-The encoder-decoder has no port yet.
+:attr:`Model.params` hands that tree to the functions of ``transformer``
+(decoder-only) or ``encdec`` (``arch_type="encdec"``). The port serves, so
+the parameters are frozen (``requires_grad=False``).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 
 
@@ -40,7 +41,9 @@ class ModelConfig:
                                             # static causal/window chunk skip
                                             # (0 disables)
     rnn_chunk: int = 256                    # mLSTM chunk
-    slstm_tchunk: int = 16                  # sLSTM steps per scan iteration
+    slstm_tchunk: int = 16                  # the reference's sLSTM steps per scan
+                                            # iteration; the port steps one token
+                                            # at a time, which is the same result
     dtype: str = "bfloat16"
     # MoE
     moe_experts: int = 0
@@ -125,11 +128,8 @@ class ModelConfig:
         return full - routed_all + routed_active
 
 
-def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch_type == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (the reference's repro.models.encdec) "
-            "is not ported yet; the port runs decoder-only models")
+def _module(cfg: ModelConfig):
+    return E if cfg.arch_type == "encdec" else T
 
 
 def _resolve_device(device) -> torch.device:
@@ -166,23 +166,30 @@ class _ParamTree(nn.Module):
 
 
 class Model(nn.Module):
-    """A decoder-only LM holding its parameters.
+    """An LM holding its parameters: decoder-only, or an encoder-decoder
+    when ``cfg.arch_type == "encdec"``.
 
     ``Model(cfg, device)`` draws the parameters from ``generator`` (a fresh
     ``torch.Generator`` seeded 0 on ``device`` when None); ``params=`` takes
     a ready tree instead (see ``repro_torch.interop.lm_params_from_arrays``).
+    The entry points take the arguments of the module's functions after
+    ``cfg`` and ``params``: ``prefill(tokens, max_seq)`` and
+    ``decode_step(caches, tokens1, pos)`` for a decoder,
+    ``prefill(frames, tokens, max_seq)`` and
+    ``decode_step(caches, enc_out, tokens1, pos)`` for an encoder-decoder,
+    whose ``forward(tokens, enc_out)`` is ``encdec.decoder_forward``.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None, params: Optional[dict] = None):
         super().__init__()
-        _check_arch(cfg)
         self.cfg = cfg
+        self._mod = _module(cfg)
         device = _resolve_device(device)
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=device).manual_seed(0)
-            params, _ = T.init_params(cfg, generator, device)
+            params, _ = self._mod.init_params(cfg, generator, device)
         self.weights = _ParamTree(params)
 
     @property
@@ -193,7 +200,7 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> dict:
         """Draw every parameter anew from ``generator`` (on the parameters'
         device); returns the tree."""
-        params, _ = T.init_params(self.cfg, generator)
+        params, _ = self._mod.init_params(self.cfg, generator)
         with torch.no_grad():
             for dst, src in zip(self.weights.parameters(), _ParamTree(params).parameters()):
                 dst.copy_(src)
@@ -203,22 +210,31 @@ class Model(nn.Module):
         """(meta-tensor tree, logical-axes tree): no allocation."""
         return abstract_params(self.cfg)
 
-    def forward(self, tokens, **kw):
-        return T.forward(self.cfg, self.params, tokens, **kw)
+    def forward(self, tokens, *args, **kw):
+        if self._mod is E:
+            return E.decoder_forward(self.cfg, self.params, tokens, *args, **kw)
+        return T.forward(self.cfg, self.params, tokens, *args, **kw)
+
+    def encode(self, frames):
+        """The encoder-decoder's encoder over stub frame embeddings."""
+        return E.encode(self.cfg, self.params, frames)
 
     def loss_fn(self, batch, mesh=None):
-        return T.loss_fn(self.cfg, self.params, batch, mesh=mesh)
+        return self._mod.loss_fn(self.cfg, self.params, batch, mesh=mesh)
 
     @torch.inference_mode()
-    def prefill(self, tokens, max_seq: int, **kw):
-        return T.prefill(self.cfg, self.params, tokens, max_seq, **kw)
+    def prefill(self, *args, **kw):
+        return self._mod.prefill(self.cfg, self.params, *args, **kw)
 
     @torch.inference_mode()
-    def decode_step(self, caches, tokens1, pos, **kw):
-        return T.decode_step(self.cfg, self.params, caches, tokens1, pos, **kw)
+    def decode_step(self, *args, **kw):
+        return self._mod.decode_step(self.cfg, self.params, *args, **kw)
 
     def init_caches(self, batch: int, max_seq: int) -> list[dict]:
-        return T.init_caches(self.cfg, batch, max_seq, self.weights.emb.device)
+        device = self.weights.emb.device
+        if self._mod is E:
+            return E.init_dec_caches(self.cfg, batch, max_seq, device)
+        return T.init_caches(self.cfg, batch, max_seq, device)
 
 
 def build_model(cfg: ModelConfig, device="cuda",
@@ -229,5 +245,4 @@ def build_model(cfg: ModelConfig, device="cuda",
 def abstract_params(cfg: ModelConfig):
     """(tree of meta tensors with each parameter's shape and dtype, tree of
     logical-axes tuples) without allocating."""
-    _check_arch(cfg)
-    return T.init_params(cfg, None, "meta")
+    return _module(cfg).init_params(cfg, None, "meta")

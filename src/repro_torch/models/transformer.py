@@ -5,7 +5,8 @@ and unrolls the remainder layers after them. The port runs the same layers
 in a plain Python loop in that execution order: cycle ``i``, kind ``j`` is
 layer ``i * len(pattern) + j``, and the remainder layers come last. The
 parameters are ``{"emb", "final_norm", "layers": [one dict per layer]}`` and
-the decode caches a list of per-layer dicts, both in that order.
+the decode caches a list of per-layer dicts (K/V caches, or a recurrent
+block's state), both in that order.
 """
 from __future__ import annotations
 
@@ -131,7 +132,8 @@ def prefill(cfg, params, tokens: torch.Tensor, max_seq: int,
 def decode_step(cfg, params, caches: list[dict], tokens1: torch.Tensor, pos: torch.Tensor,
                 mesh=None):
     """tokens1: (B, 1) new token ids; pos: (B,) absolute positions. Writes
-    the new token's K/V into ``caches`` and returns them."""
+    the new token's K/V into ``caches`` and returns the per-layer caches,
+    a recurrent layer's state anew."""
     x = embed_tokens(cfg, params, tokens1)
     x, new_caches, _ = _run_layers(cfg, params, x, pos, caches=caches, decode=True, mesh=mesh)
     x = apply_norm(cfg.norm_kind, params["final_norm"], x)

@@ -28,7 +28,8 @@ def test_port_modules_listed():
                  "obs.metrics", "engine.distributed", "graphs.io",
                  "kernels.budgets", "interop", "models", "models.layers",
                  "models.attention", "models.blocks", "models.transformer",
-                 "models.model", "configs"):
+                 "models.model", "models.moe", "models.recurrent", "models.encdec",
+                 "configs"):
         assert f"repro_torch.{name}" in MODULES
     for arch in ("olmo_1b", "deepseek_7b", "gemma_7b", "gemma3_4b", "internvl2_76b",
                  "qwen2_moe_a2_7b", "granite_moe_1b_a400m", "xlstm_350m",

@@ -1,12 +1,15 @@
-"""The port's dense-decoder LM serving path against the reference's.
+"""The port's LM serving path against the reference's.
 
-For each reduced dense configuration the same weights, drawn from a numpy
-seed in the reference's layout and carried across by
-``interop.lm_params_from_arrays``, go through the reference's ``forward``,
-``prefill``, four ``decode_step``s and ``loss_fn`` (jitted, on the CPU) and
-through the port's on the CPU. Tolerance: f32 at atol 2e-4 / rtol 2e-3, the
-reference's own decode-against-forward test. The registry's ten
-configurations equal the reference's field by field.
+For each reduced configuration (dense, MoE, recurrent and the
+encoder-decoder) the same weights, drawn from a numpy seed in the
+reference's layout and carried across by ``interop.lm_params_from_arrays``,
+go through the reference's ``forward`` (``decoder_forward`` over the
+encoder's output for whisper), ``prefill``, four ``decode_step``s and
+``loss_fn`` (jitted, on the CPU) and through the port's on the CPU. The
+caches compared include the recurrent states, and the loss its MoE aux
+term. Tolerance: f32 at atol 2e-4 / rtol 2e-3, the reference's own
+decode-against-forward test. The registry's ten configurations equal the
+reference's field by field.
 """
 import dataclasses
 import functools
@@ -19,6 +22,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as RC  # noqa: E402
+from repro.models import encdec as RE  # noqa: E402
 from repro.models import model as RM  # noqa: E402
 from repro_torch import configs as PC  # noqa: E402
 from repro_torch.interop import lm_caches_from_arrays, lm_params_from_arrays  # noqa: E402
@@ -29,8 +33,12 @@ from repro_torch.models.layers import count_params, tree_leaves  # noqa: E402
 TOL = dict(atol=2e-4, rtol=2e-3)
 STEPS = 4
 # case -> (arch, prompt length, config overrides). Prompts of 24 take
-# attention_full (kv_chunk 32), of 40 attention_chunked; gemma3's window of 8
-# makes its local caches roll; q_chunk 16 takes attention_chunked_q.
+# attention_full (kv_chunk 32), of 40 attention_chunked; gemma3's and
+# recurrentgemma's window of 8 makes their local caches roll; q_chunk 16
+# takes attention_chunked_q. The MoE cases at capacity 1.25 drop tokens in
+# the prefill; at 16 none drop. xlstm's 20 tokens are not a multiple of its
+# mLSTM chunk of 8. whisper's 24 tokens over 48 frames take the chunked
+# cross-attention (24 * 48 > 32^2), its decode steps the full one.
 CASES = {
     "olmo-1b": ("olmo-1b", 24, {}),
     "deepseek-7b": ("deepseek-7b", 40, {}),
@@ -39,8 +47,21 @@ CASES = {
     "gemma3-4b": ("gemma3-4b", 40, {}),
     "gemma3-4b-qchunk16": ("gemma3-4b", 40, {"q_chunk": 16}),
     "internvl2-76b": ("internvl2-76b", 20, {}),
+    "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", 24, {}),
+    "qwen2-moe-a2.7b-nodrop": ("qwen2-moe-a2.7b", 40, {"moe_capacity": 16.0}),
+    "granite-moe-1b-a400m": ("granite-moe-1b-a400m", 40, {}),
+    "granite-moe-1b-a400m-nodrop": ("granite-moe-1b-a400m", 24, {"moe_capacity": 16.0}),
+    "recurrentgemma-2b": ("recurrentgemma-2b", 40, {}),
+    "xlstm-350m": ("xlstm-350m", 20, {}),
+    "whisper-tiny": ("whisper-tiny", 24, {}),
 }
 DENSE = ("olmo-1b", "deepseek-7b", "gemma-7b", "gemma3-4b", "internvl2-76b")
+FAMILIES = ("qwen2-moe-a2.7b", "granite-moe-1b-a400m", "recurrentgemma-2b", "xlstm-350m",
+            "whisper-tiny")
+FRAMES = 48  # encoder frames of the encoder-decoder cases
+# a prefill token may drop at a capacity that its decode step never meets,
+# so a dropping MoE case is held to the reference only
+DROPS = ("qwen2-moe-a2.7b", "granite-moe-1b-a400m")
 
 
 def _np(x) -> np.ndarray:
@@ -51,22 +72,36 @@ def _np(x) -> np.ndarray:
 
 def ref_weights(cfg, seed: int) -> dict:
     """Weights in the reference's layout from ``default_rng(seed)``: fan-in
-    scaled normals, norm scales and biases ~ N(0, 0.1^2)."""
+    scaled normals (an expert's or a head's matrix by its own input
+    width), norm scales and biases ~ N(0, 0.1^2), the RG-LRU's Lambda as the
+    reference initialises it; each array of the dtype the reference gives
+    that parameter."""
     shapes, _ = RM.abstract_params(cfg)
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
         name = path[-1].key
-        shape = s.shape
+        stacked = path[0].key in ("cycles", "enc", "dec")
+        core = s.shape[1:] if stacked else s.shape
+        if name == "lambda":
+            lam = np.log(np.expm1(np.linspace(0.9, 0.999, core[0])))
+            return np.broadcast_to(lam, s.shape).astype(np.float32)
         if name in ("scale", "bias"):
             std = 0.1
         elif name == "emb":
-            std = shape[1] ** -0.5
+            std = core[1] ** -0.5
+        elif name == "r_gates" or (len(core) == 3 and path[-2].key == "moe"):
+            std = core[1] ** -0.5
         else:
-            std = shape[1 if path[0].key == "cycles" else 0] ** -0.5
-        return (rng.standard_normal(shape) * std).astype(np.float32)
+            std = core[0] ** -0.5
+        return (rng.standard_normal(s.shape) * std).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def _ref_params(tree: dict, shapes) -> dict:
+    """``tree`` as reference arrays of the reference's parameter dtypes."""
+    return jax.tree.map(lambda a, s: jnp.asarray(a, s.dtype), tree, shapes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,15 +112,18 @@ def run_case(case: str) -> dict:
     rcfg = dataclasses.replace(RC.get_reduced(arch), **over)
     pcfg = dataclasses.replace(PC.get_reduced(arch), **over)
     tree = ref_weights(rcfg, seed=0)
-    rparams = jax.tree.map(jnp.asarray, tree)
+    rparams = _ref_params(tree, RM.abstract_params(rcfg)[0])
     rmodel = RM.build_model(rcfg)
     pmodel = lm_params_from_arrays(pcfg, tree, device="cpu")
+    encdec = rcfg.arch_type == "encdec"
 
     rng = np.random.default_rng(1)
     b = 2
     toks = rng.integers(0, rcfg.vocab, size=(b, s + STEPS))
     prefix = (rng.standard_normal((b, rcfg.prefix_len, rcfg.d_model)).astype(np.float32)
               if rcfg.prefix_len else None)
+    frames = (rng.standard_normal((b, FRAMES, rcfg.d_model)).astype(np.float32)
+              if encdec else None)
     labels = rng.integers(0, rcfg.vocab, size=(b, s))
     labels[0, :3] = -1                         # masked positions
     p0 = rcfg.prefix_len + s                   # position of the first decode token
@@ -94,23 +132,38 @@ def run_case(case: str) -> dict:
     tp = None if prefix is None else torch.from_numpy(prefix)
 
     out: dict = {"cfg": pcfg, "model": pmodel}
-    fwd = jax.jit(lambda p, t, pe: rmodel.forward(p, t, prefix_embeds=pe)[0])
-    out["fwd"] = (fwd(rparams, jnp.asarray(toks), jp),
-                  pmodel.forward(torch.from_numpy(toks), prefix_embeds=tp)[0])
-    pre = jax.jit(lambda p, t, pe: rmodel.prefill(p, t, max_seq=max_seq, prefix_embeds=pe))
-    rl, rcache = pre(rparams, jnp.asarray(toks[:, :s]), jp)
-    pl, pcache = pmodel.prefill(torch.from_numpy(toks[:, :s]), max_seq, prefix_embeds=tp)
+    if encdec:
+        jf, tf = jnp.asarray(frames), torch.from_numpy(frames)
+        r_enc = jax.jit(lambda p, f: RE.encode(rcfg, p, f))(rparams, jf)
+        p_enc = pmodel.encode(tf)
+        out["encode"] = (r_enc, p_enc)
+        fwd = jax.jit(lambda p, t, e: RE.decoder_forward(rcfg, p, t, e)[0])
+        out["fwd"] = (fwd(rparams, jnp.asarray(toks), r_enc),
+                      pmodel.forward(torch.from_numpy(toks), p_enc)[0])
+        pre = jax.jit(lambda p, f, t: rmodel.prefill(p, f, t, max_seq=max_seq))
+        rl, rcache, _ = pre(rparams, jf, jnp.asarray(toks[:, :s]))
+        pl, pcache, p_enc = pmodel.prefill(tf, torch.from_numpy(toks[:, :s]), max_seq)
+        dec = jax.jit(lambda p, c, t, pos: rmodel.decode_step(p, c, r_enc, t, pos))
+        pdec = functools.partial(pmodel.decode_step, enc_out=p_enc)
+    else:
+        fwd = jax.jit(lambda p, t, pe: rmodel.forward(p, t, prefix_embeds=pe)[0])
+        out["fwd"] = (fwd(rparams, jnp.asarray(toks), jp),
+                      pmodel.forward(torch.from_numpy(toks), prefix_embeds=tp)[0])
+        pre = jax.jit(lambda p, t, pe: rmodel.prefill(p, t, max_seq=max_seq, prefix_embeds=pe))
+        rl, rcache = pre(rparams, jnp.asarray(toks[:, :s]), jp)
+        pl, pcache = pmodel.prefill(torch.from_numpy(toks[:, :s]), max_seq, prefix_embeds=tp)
+        dec = jax.jit(lambda p, c, t, pos: rmodel.decode_step(p, c, t, pos))
+        pdec = pmodel.decode_step
     out["prefill"] = (rl, pl)
     out["prefill_caches"] = (lm_caches_from_arrays(pcfg, jax.tree.map(np.asarray, rcache),
                                                    device="cpu"),
                              [{k: v.clone() for k, v in c.items()} for c in pcache])
-    dec = jax.jit(lambda p, c, t, pos: rmodel.decode_step(p, c, t, pos))
     steps = []
     for i in range(STEPS):
         t1 = toks[:, s + i:s + i + 1]
         pos = np.full((b,), p0 + i)
         rl, rcache = dec(rparams, rcache, jnp.asarray(t1), jnp.asarray(pos))
-        pl, pcache = pmodel.decode_step(pcache, torch.from_numpy(t1), torch.from_numpy(pos))
+        pl, pcache = pdec(pcache, tokens1=torch.from_numpy(t1), pos=torch.from_numpy(pos))
         steps.append((rl, pl))
     out["decode"] = steps
     out["decode_caches"] = (lm_caches_from_arrays(pcfg, jax.tree.map(np.asarray, rcache),
@@ -118,9 +171,13 @@ def run_case(case: str) -> dict:
     batch = {"tokens": toks[:, :s], "labels": labels}
     if prefix is not None:
         batch["prefix_embeds"] = prefix
-    loss = jax.jit(lambda p, bt: rmodel.loss_fn(p, bt)[0])
-    out["loss"] = (loss(rparams, jax.tree.map(jnp.asarray, batch)),
-                   pmodel.loss_fn({k: torch.from_numpy(v) for k, v in batch.items()})[0])
+    if encdec:
+        batch["frames"] = frames
+    loss = jax.jit(lambda p, bt: rmodel.loss_fn(p, bt))
+    rloss, raux = loss(rparams, jax.tree.map(jnp.asarray, batch))
+    ploss, paux = pmodel.loss_fn({k: torch.from_numpy(v) for k, v in batch.items()})
+    out["loss"] = (rloss, ploss)
+    out["aux"] = (raux["aux"], paux["aux"])
     return out
 
 
@@ -169,16 +226,27 @@ def test_decode_steps(case):
 
 @pytest.mark.parametrize("case", CASES)
 def test_loss(case):
-    r, p = run_case(case)["loss"]
+    out = run_case(case)
+    r, p = out["loss"]
     np.testing.assert_allclose(float(p), float(r), **TOL)
+    r, p = out["aux"]
+    np.testing.assert_allclose(float(p), float(r), **TOL)
+    if "moe" in case:
+        assert float(p) > 0
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if "int8" not in c])
+@pytest.mark.parametrize("case", [c for c in CASES if CASES[c][0] == "whisper-tiny"])
+def test_encode(case):
+    r, p = run_case(case)["encode"]
+    np.testing.assert_allclose(_np(p), _np(r), **TOL)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if "int8" not in c and c not in DROPS])
 def test_decode_matches_own_forward(case):
     """The port's last decode step against its own forward over the prompt
     and the decoded tokens (the reference's decode-against-forward test;
-    an int8 cache attends quantized K/V, so it is held to the reference
-    above instead)."""
+    an int8 cache attends quantized K/V, and a MoE prefill at capacity 1.25
+    drops tokens, so those are held to the reference above instead)."""
     out = run_case(case)
     full = out["fwd"][1]
     np.testing.assert_allclose(_np(out["decode"][-1][1][:, 0]), _np(full[:, -1]), **TOL)
@@ -208,6 +276,19 @@ def _ref_specs_per_layer(cfg):
     in the port's layout: (shape, dtype name) and axes."""
     shapes, specs = RM.abstract_params(cfg)
     is_axes = lambda a: isinstance(a, tuple)  # noqa: E731
+    sd = lambda a: (tuple(a.shape), a.dtype.name)  # noqa: E731
+
+    def unstack(shape_tree, spec_tree, n):
+        return ([jax.tree.map(lambda a: (tuple(a.shape[1:]), a.dtype.name), shape_tree)] * n,
+                [jax.tree.map(lambda a: tuple(a[1:]), spec_tree, is_leaf=is_axes)] * n)
+
+    if cfg.arch_type == "encdec":
+        top = ("emb", "frontend_proj", "final_norm")
+        s = {k: jax.tree.map(sd, shapes[k]) for k in top}
+        a = {k: jax.tree.map(tuple, specs[k], is_leaf=is_axes) for k in top}
+        s["enc"], a["enc"] = unstack(shapes["enc"], specs["enc"], cfg.enc_layers)
+        s["dec"], a["dec"] = unstack(shapes["dec"], specs["dec"], cfg.dec_layers)
+        return s, a
     n_cycles = cfg.n_layers // len(cfg.pattern)
     lay_s, lay_a = [], []
     for i in range(n_cycles):
@@ -216,16 +297,28 @@ def _ref_specs_per_layer(cfg):
                                       shapes["cycles"][j]))
             lay_a.append(jax.tree.map(lambda a: tuple(a[1:]), specs["cycles"][j],
                                       is_leaf=is_axes))
-    lay_s += [jax.tree.map(lambda a: (tuple(a.shape), a.dtype.name), p) for p in shapes["rem"]]
+    lay_s += [jax.tree.map(sd, p) for p in shapes["rem"]]
     lay_a += [jax.tree.map(tuple, s, is_leaf=is_axes) for s in specs["rem"]]
     top = ("emb", "final_norm")
-    s = {k: jax.tree.map(lambda a: (tuple(a.shape), a.dtype.name), shapes[k]) for k in top}
+    s = {k: jax.tree.map(sd, shapes[k]) for k in top}
     a = {k: jax.tree.map(tuple, specs[k], is_leaf=is_axes) for k in top}
     s["layers"], a["layers"] = lay_s, lay_a
     return s, a
 
 
-@pytest.mark.parametrize("arch,full", [(a, False) for a in DENSE] + [("gemma3-4b", True)])
+# What the reference's analytic n_params leaves out of the full
+# configurations (+) or counts beyond their tensors (-), norms aside:
+# qwen2-moe's shared gates (24 x 2,048), the RG-LRU's conv and Lambda
+# (18 x 5 x 2,560), whisper's frontend_proj (384^2), and for xlstm the
+# sLSTM's width rounded to 1,408 (not 1,365) and its block-diagonal
+# recurrence, less the mLSTM's w_if (12 x 2,048 x 8).
+ANALYTIC_GAP = {"qwen2-moe-a2.7b": 49_152, "granite-moe-1b-a400m": 0,
+                "recurrentgemma-2b": 230_400, "whisper-tiny": 147_456,
+                "xlstm-350m": -13_983_744}
+
+
+@pytest.mark.parametrize("arch,full", [(a, False) for a in DENSE + FAMILIES]
+                         + [("gemma3-4b", True)] + [(a, True) for a in FAMILIES])
 def test_param_specs(arch, full):
     get = "get_config" if full else "get_reduced"
     rcfg, pcfg = getattr(RC, get)(arch), getattr(PC, get)(arch)
@@ -238,7 +331,10 @@ def test_param_specs(arch, full):
     assert axes == want_a
     # the analytic count is the matrices' (norm scales are not counted)
     norms = sum(t.numel() for k, t in _named_leaves(shapes) if "norm" in k)
-    assert count_params(shapes) - norms == pcfg.n_params()
+    if arch in DENSE:
+        assert count_params(shapes) - norms == pcfg.n_params()
+    elif full:
+        assert count_params(shapes) - norms - pcfg.n_params() == ANALYTIC_GAP[arch]
 
 
 def _named_leaves(tree, prefix=""):
@@ -250,16 +346,6 @@ def _named_leaves(tree, prefix=""):
             yield from _named_leaves(v, f"{prefix}.{i}")
     else:
         yield prefix, tree
-
-
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "granite-moe-1b-a400m",
-                                  "recurrentgemma-2b", "xlstm-350m", "whisper-tiny"])
-def test_unported_kinds_refuse(arch):
-    cfg = PC.get_reduced(arch)
-    with pytest.raises(NotImplementedError):
-        PM.build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        PM.abstract_params(cfg)
 
 
 def test_build_model_defaults_to_cuda():
@@ -319,6 +405,62 @@ def test_bf16_forward_and_decode():
     assert ref_c[0]["k"].dtype == torch.bfloat16
     for a, b in zip(ref_c, pc):
         np.testing.assert_array_equal(_np(b["slot_pos"]), _np(a["slot_pos"]))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m"])
+def test_bf16_recurrent_forward_and_decode(arch):
+    """A recurrent family in bf16 (the RG-LRU's Lambda stays f32 in both
+    packages): forward, prefill and two decode steps against the reference
+    within 5% of the largest logit, as the dense bf16 case; the carried
+    states within 5% of their largest magnitude."""
+    _bf16_against_reference(arch, {})
+
+
+@pytest.mark.parametrize("arch,capacity", [("qwen2-moe-a2.7b", 1.25),
+                                           ("qwen2-moe-a2.7b", 16.0),
+                                           ("granite-moe-1b-a400m", 1.25)])
+def test_bf16_moe_forward_and_decode(arch, capacity):
+    """A MoE family in bf16, at a capacity whose prefill drops tokens and
+    one where none drop: forward, prefill and two decode steps against the
+    reference within 5% of the largest logit, caches as the recurrent bf16
+    case."""
+    _bf16_against_reference(arch, {"moe_capacity": capacity})
+
+
+def _bf16_against_reference(arch: str, over: dict) -> None:
+    # a name of its own: the reference caches abstract shapes by name, not dtype
+    over = {**over, "dtype": "bfloat16",
+            "name": arch + "-reduced-bf16-" + "-".join(map(str, over.values()))}
+    rcfg = dataclasses.replace(RC.get_reduced(arch), **over)
+    pcfg = dataclasses.replace(PC.get_reduced(arch), **over)
+    tree = ref_weights(rcfg, seed=8)
+    rparams = _ref_params(tree, RM.abstract_params(rcfg)[0])
+    rmodel = RM.build_model(rcfg)
+    pmodel = lm_params_from_arrays(pcfg, tree, device="cpu")
+    toks = np.random.default_rng(9).integers(0, rcfg.vocab, size=(2, 14))
+
+    def close(got, want):
+        got, want = _np(got), np.asarray(want).astype(np.float32)
+        np.testing.assert_allclose(got, want, atol=0.05 * np.abs(want).max(), rtol=0)
+
+    close(pmodel.forward(torch.from_numpy(toks))[0],
+          jax.jit(lambda p, t: rmodel.forward(p, t)[0])(rparams, jnp.asarray(toks)))
+    rl, rc = rmodel.prefill(rparams, jnp.asarray(toks[:, :12]), max_seq=14)
+    pl, pc = pmodel.prefill(torch.from_numpy(toks[:, :12]), 14)
+    close(pl, rl)
+    for i in (12, 13):
+        rl, rc = rmodel.decode_step(rparams, rc, jnp.asarray(toks[:, i:i + 1]), jnp.full((2,), i))
+        pl, pc = pmodel.decode_step(pc, torch.from_numpy(toks[:, i:i + 1]), torch.full((2,), i))
+        close(pl, rl)
+    ref_c = lm_caches_from_arrays(pcfg, jax.tree.map(np.asarray, rc), device="cpu")
+    for a, b in zip(ref_c, pc):
+        assert sorted(a) == sorted(b)
+        for name in a:
+            assert a[name].dtype == b[name].dtype
+            if name == "slot_pos":
+                np.testing.assert_array_equal(_np(b[name]), _np(a[name]))
+            else:
+                close(b[name], _np(a[name]))
 
 
 def test_embed_and_logits_round_like_the_reference():
