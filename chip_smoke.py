@@ -69,14 +69,29 @@ graph:
   ``decode_step``, each step held to ``forward`` (the MoE's on a run at
   capacity 16, where nothing drops), bf16 held to f32 weights, with
   ``[lm]`` lines of prefill seconds, decode ms a step, tokens/s, peak
-  memory, the MoE's dropped share and their bounds.
+  memory, the MoE's dropped share and their bounds;
+* the LM training path (``phase_train``; torch ops, no kernel of its own)
+  — the ten reduced configurations trained three steps on the card and on
+  the CPU in f32 (held together; remat "full" the bits of "none"); olmo-1b
+  at full width and depth in bf16 under full remat through
+  ``make_train_step`` on a one-rank NCCL mesh: eight steps on a fixed 8 x
+  4,096 batch (the loss must fall), a checkpoint after step 4 restored
+  into a fresh state that runs steps 5–8 to the same bits, a second run
+  from the same seed to the same bits, one step under deterministic
+  algorithms naming no op, bf16 against f32 gradients on a two-layer cut,
+  and ``[train]`` lines of s a step, tokens/s, MFU, the bound, peak memory,
+  launches and the idle share; four gloo ranks sharing the card
+  (manual-dp with int8 compression against the same on the CPU, ZeRO-1
+  against one rank over the whole batch); the sequence-sharded decode on
+  those four ranks against the unsharded one, and gemma3-4b at full width
+  through it on the one NCCL rank.
 
 Any failure raises and exits non-zero. The second-to-last line of standard
 output is the kernels' JSON record, the last line the device JSON. Detailed
 per-case results go to ``chiprun_out/chip_smoke.json``. With no CUDA device
 it exits non-zero before printing any result. ``--only-kernels`` stops after
-the kernel-vs-plain phase; ``--only-lm`` runs the environment phase and the
-LM phase only.
+the kernel-vs-plain phase; ``--only-lm`` and ``--only-train`` run the
+environment phase and the LM or the training phase only.
 """
 from __future__ import annotations
 
@@ -85,6 +100,7 @@ import gc
 import importlib
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -92,6 +108,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# cuBLAS's deterministic workspace, read when CUDA starts: phase_train runs
+# one step under torch.use_deterministic_algorithms, which asks for it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
@@ -2783,6 +2802,758 @@ def phase_lm() -> None:
     RECORD["phases"]["lm"] = rec
 
 
+# ---------------------------------------------------------------------------
+# the LM training path
+# ---------------------------------------------------------------------------
+
+# (a) the reduced configurations, f32, three steps card against CPU: batch
+# rows (at least the arch's microbatches), sequence length, AdamW. Losses
+# and gradient norms within TRAIN_F32_TOL each step; m and v after the last
+# step within TRAIN_MV_TOL; the parameters within TRAIN_PARAM_ATOL where
+# every step's |g| > TRAIN_CLEAR (clear of rounding: AdamW's early steps
+# move an entry by ~lr whatever |g| is, so one step's gradient within
+# rounding of zero may move it either way), the entries excused counted.
+# Each step's |g| is read off v: g_t^2 = (v_t - b2 v_{t-1}) / (1 - b2).
+TRAIN_REDUCED_STEPS = 3
+TRAIN_REDUCED_ROWS = 4
+TRAIN_REDUCED_SEQ = 24
+TRAIN_REDUCED_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+TRAIN_F32_TOL = {"atol": 1e-5, "rtol": 1e-5}
+# m and v: an entry whose step-1 gradient was within rounding of zero moves
+# by up to 2 lr either way, and the later gradients of every entry move
+# with it by ~lr relatively (1e-3), so m and v are held to rtol 1e-2 and an
+# atol of 1e-3 of the leaf's largest |entry|
+TRAIN_MV_TOL = {"atol": 1e-3, "rtol": 1e-2}
+TRAIN_PARAM_ATOL = 1e-4
+TRAIN_CLEAR = 1e-6
+TRAIN_FLIPS = 1e-3         # (c)'s int8 compression: entries off on a rounding edge
+# (b) olmo-1b at full width and depth in bf16, remat "full", its
+# TRAIN_OVERRIDES: one fixed global batch of rows x seq tokens, `steps`
+# steps at lr 3e-4 with 2 warmup steps, a checkpoint after `save_at`
+TRAIN_FULL = dict(arch="olmo-1b", rows=8, seq=4096, steps=8, save_at=4, lr=3e-4, warmup=2)
+TRAIN_LOSS_FALL = 1.0      # the loss falls by at least this much over the steps
+TRAIN_BF16_CUT = dict(layers=2, rows=1, seq=4096)  # gradients on a full-width cut
+TRAIN_BF16_VS_F32 = 0.05   # bf16 against f32: relative norm of the gradient difference
+# f32 card against f32 CPU: each leaf's relative norm of the difference (sums
+# of up to 4,096 tokens in two orders, ~1e-5 expected; a wrong term is O(1))
+TRAIN_CUT_F32 = 1e-3
+# (c) four gloo ranks sharing the card, and (d) the sequence-sharded decode
+TRAIN_RANKS = 4
+TRAIN_DP_ARCH = "olmo-1b"
+TRAIN_DP_ROWS = 8
+TRAIN_DP_SEQ = 16
+SEQ_SHARD_REDUCED = dict(arch="gemma3-4b", rows=2, prompt=12, steps=6, max_seq=32)
+SEQ_SHARD_TOL = {"atol": 1e-5, "rtol": 1e-5}
+SEQ_SHARD_FULL = dict(arch="gemma3-4b", rows=4, prompt=1024, steps=16)
+
+
+def _detached(model) -> dict:
+    from repro_torch.models.layers import tree_map
+
+    return tree_map(lambda t: t.detach(), model.params)
+
+
+def _train_run(model, tcfg, batches, steps: int, mesh=None, params=None, opt=None,
+               start: int = 0, track: bool = False, profile_last: bool = False) -> dict:
+    """``steps`` steps of ``make_train_step`` from ``params``/``opt`` (the
+    model's own parameters and a fresh state when None), ``batches(i)``
+    the rank's batch of step i; the state after each step's sync, the
+    losses, gradient norms and seconds a step; with ``track``, each
+    entry's smallest |g| over the steps (``gmin``); with ``profile_last``,
+    the last step under the profiler (``profile``, `_profiled`)."""
+    from repro_torch.sharding.rules import default_rules
+    from repro_torch.train.loop import init_opt_state, make_train_step
+
+    step_fn, sh = make_train_step(model, mesh, default_rules(mesh), tcfg)
+    if params is None:
+        params = _detached(model)
+        opt = init_opt_state(params, sh["placements"])
+    out = {"loss": [], "grad_norm": [], "s": [], "shardings": sh}
+    gmin = None
+    for i in range(start, start + steps):
+        batch = batches(i)
+        v_prev = opt["v"]
+        if profile_last and i == start + steps - 1:
+            (params, opt, met), out["profile"] = _profiled(
+                lambda: step_fn(params, opt, batch), 1)
+            out["s"].append(out["profile"]["wall_ms_per_step"] / 1e3)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            out["s"].append(time.perf_counter() - t0)
+        out["loss"].append(float(met["loss"]))
+        out["grad_norm"].append(float(met["grad_norm"]))
+        if track:
+            gmin = _gmin(gmin, v_prev, opt["v"], tcfg.opt.b2)
+    out.update(params=params, opt=opt, step_fn=step_fn, gmin=gmin)
+    return out
+
+
+def _gmin(gmin, v_prev, v_new, b2: float):
+    """Each entry's smallest |g| over the steps so far, read off v:
+    g_t^2 = (v_t - b2 v_{t-1}) / (1 - b2)."""
+    from repro_torch.models.layers import tree_map
+
+    g = tree_map(lambda a, b: torch.sqrt(torch.clamp_min(b - b2 * a, 0.0) / (1 - b2)),
+                 v_prev, v_new)
+    return g if gmin is None else tree_map(torch.minimum, gmin, g)
+
+
+def _host_tree(tree):
+    from repro_torch.models.layers import tree_map
+
+    return tree_map(lambda t: None if t is None else t.detach().to("cpu", copy=True), tree)
+
+
+def _tree_equal(a, b) -> bool:
+    from repro_torch.models.layers import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        (x is None and y is None) or (x is not None and y is not None and torch.equal(
+            x.cpu(), y.cpu())) for x, y in zip(la, lb))
+
+
+def _state_close(card: dict, cpu: dict) -> dict:
+    """(a)'s comparison of two runs' states: m and v within TRAIN_MV_TOL,
+    the parameters within TRAIN_PARAM_ATOL where every step's |g| on the
+    CPU run > TRAIN_CLEAR, and every entry within the 2 lr a step that an
+    AdamW update can move it."""
+    from repro_torch.models.layers import tree_leaves
+
+    bound = 2 * TRAIN_REDUCED_OPT["lr"] * TRAIN_REDUCED_STEPS
+    row = {"m_max_abs_diff": 0.0, "v_max_abs_diff": 0.0, "param_max_abs_diff_clear": 0.0,
+           "param_max_abs_diff": 0.0, "param_bound": bound,
+           "entries": 0, "entries_excused": 0, "ok": True}
+    for key in ("m", "v"):
+        for a, b in zip(tree_leaves(card["opt"][key]), tree_leaves(cpu["opt"][key])):
+            a = a.cpu()
+            row[f"{key}_max_abs_diff"] = max(row[f"{key}_max_abs_diff"],
+                                             (a - b).abs().max().item())
+            row["ok"] &= torch.allclose(a, b, rtol=TRAIN_MV_TOL["rtol"],
+                                        atol=TRAIN_MV_TOL["atol"] * b.abs().max().item())
+    for p, q, g in zip(tree_leaves(card["params"]), tree_leaves(cpu["params"]),
+                       tree_leaves(cpu["gmin"])):
+        clear = g > TRAIN_CLEAR
+        d = (p.cpu().float() - q.float()).abs()
+        row["entries"] += d.numel()
+        row["entries_excused"] += int((~clear).sum())
+        if d.numel():
+            row["param_max_abs_diff"] = max(row["param_max_abs_diff"], d.max().item())
+        if clear.any():
+            row["param_max_abs_diff_clear"] = max(row["param_max_abs_diff_clear"],
+                                                  d[clear].max().item())
+    row["ok"] &= row["param_max_abs_diff_clear"] <= TRAIN_PARAM_ATOL
+    row["ok"] &= row["param_max_abs_diff"] <= bound
+    return row
+
+
+def _train_reduced() -> list:
+    """(a) The reduced configurations of all ten archs in f32 (TF32 off):
+    TRAIN_REDUCED_STEPS steps on the card against the same on the CPU, the
+    same numpy weights and batches; and on the card under remat "full",
+    which must give the bits of remat "none"."""
+    from repro_torch.configs import ALL_ARCHS, get_reduced, get_train_overrides
+    from repro_torch.data.tokens import TokenDataset, TokenDatasetConfig
+    from repro_torch.interop import lm_params_from_arrays
+    from repro_torch.train import optim
+    from repro_torch.train.loop import TrainConfig
+
+    rows = []
+    for seed, arch in enumerate(ALL_ARCHS):
+        cfg = get_reduced(arch)
+        over = get_train_overrides(arch)
+        tcfg = TrainConfig(opt=optim.AdamWConfig(**TRAIN_REDUCED_OPT), **over)
+        n_rows = max(TRAIN_REDUCED_ROWS, tcfg.microbatches)
+        tree = _lm_numpy_tree(cfg, 200 + seed)
+        dcfg = TokenDatasetConfig(vocab=cfg.vocab, seq_len=TRAIN_REDUCED_SEQ,
+                                  global_batch=n_rows, seed=seed, structure=0.9)
+        runs = {}
+        for tag, dev, remat in (("card", DEVICE, "none"), ("cpu", "cpu", "none"),
+                                ("card_full", DEVICE, "full")):
+            c = dataclasses.replace(cfg, remat=remat)
+            ds = TokenDataset(dcfg, prefix_len=c.prefix_len, d_model=c.d_model,
+                              frames=c.arch_type == "encdec", device=dev)
+            runs[tag] = _train_run(lm_params_from_arrays(c, tree, device=dev), tcfg, ds,
+                                   TRAIN_REDUCED_STEPS, track=tag == "cpu")
+        card, cpu, full = runs["card"], runs["cpu"], runs["card_full"]
+        row = {"arch": arch, "microbatches": tcfg.microbatches, "rows": n_rows,
+               "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+               "grad_norm_card": card["grad_norm"], "grad_norm_cpu": cpu["grad_norm"]}
+        scalars_ok = all(np.allclose(card[k], cpu[k], **TRAIN_F32_TOL)
+                         for k in ("loss", "grad_norm"))
+        row.update(_state_close(card, cpu))
+        row["remat_full_same_bits"] = (full["loss"] == card["loss"]
+                                       and full["grad_norm"] == card["grad_norm"]
+                                       and _tree_equal(full["params"], card["params"])
+                                       and _tree_equal(full["opt"], card["opt"]))
+        row["ok"] = bool(row["ok"] and scalars_ok and row["remat_full_same_bits"])
+        log(f"[train] reduced {json.dumps(row)}")
+        rows.append(row)
+        if not row["ok"]:
+            raise AssertionError(f"train {arch}: card against CPU or remat {row}")
+    return rows
+
+
+def _grad_of(model, batch) -> dict:
+    """The gradient tree of ``loss_fn`` at the model's parameters."""
+    from repro_torch.models.layers import tree_leaves, tree_map
+
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), model.params)
+    loss, _ = model.loss_fn(batch, params=leaves)
+    flat = tree_leaves(leaves)
+    gs = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+    return [g.float() for g in gs]
+
+
+def _cut_grads(cfg) -> dict:
+    """Gradients on a cut of TRAIN_BF16_CUT's layers at full width, the
+    same weights (drawn in f32, rounded to bf16) and batch: f32 on the card
+    against f32 on the CPU, each leaf's difference within TRAIN_CUT_F32 of
+    its norm; and bf16 against f32 on the card, the relative norm of the
+    difference over every parameter within TRAIN_BF16_VS_F32. The cut's
+    sequence is longer than q_chunk, so the attention runs the chunked
+    online softmax (attention_chunked_q) as the full training step does."""
+    from repro_torch.data.tokens import TokenDataset, TokenDatasetConfig
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model, build_model
+
+    cut = TRAIN_BF16_CUT
+    c32 = dataclasses.replace(cfg, n_layers=cut["layers"], dtype="float32", remat="none")
+    assert c32.q_chunk and cut["seq"] > c32.q_chunk, "the cut must run attention_chunked_q"
+    m32 = build_model(c32, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(5))
+    c16 = dataclasses.replace(c32, dtype="bfloat16")
+    m16 = Model(c16, device=DEVICE,
+                params=tree_map(lambda t: t.detach().to(torch.bfloat16), m32.params))
+    mcpu = Model(c32, device="cpu", params=tree_map(lambda t: t.detach().cpu(), m32.params))
+    dcfg = TokenDatasetConfig(vocab=cfg.vocab, seq_len=cut["seq"], global_batch=cut["rows"],
+                              seed=3)
+    batch = TokenDataset(dcfg, device=DEVICE)(0)
+    g32 = _grad_of(m32, batch)
+    g16 = _grad_of(m16, batch)
+    diff = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(g16, g32)))
+    ref = math.sqrt(sum((b ** 2).sum().item() for b in g32))
+    del m16, g16
+    t0 = time.perf_counter()
+    gcpu = _grad_of(mcpu, TokenDataset(dcfg, device="cpu")(0))
+    leaf_rel = [((a.cpu() - b).norm() / b.norm().clamp_min(1e-30)).item()
+                for a, b in zip(g32, gcpu)]
+    row = {"layers": cut["layers"], "tokens": [cut["rows"], cut["seq"]],
+           "q_chunk": c32.q_chunk, "kv_chunk": c32.kv_chunk,
+           "grad_norm_rel": diff / ref, "limit": TRAIN_BF16_VS_F32,
+           "f32_card_vs_cpu_max_leaf_rel": max(leaf_rel), "f32_limit": TRAIN_CUT_F32,
+           "cpu_s": time.perf_counter() - t0}
+    del m32, mcpu, g32, gcpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] full-width cut gradients {json.dumps(row)}")
+    if row["grad_norm_rel"] > TRAIN_BF16_VS_F32:
+        raise AssertionError(f"train: bf16 gradients {row}")
+    if row["f32_card_vs_cpu_max_leaf_rel"] > TRAIN_CUT_F32:
+        raise AssertionError(f"train: f32 gradients, card against CPU {row}")
+    return row
+
+
+def _train_full(mesh) -> dict:
+    """(b) olmo-1b at full width and depth in bf16 through make_train_step
+    on the one-rank mesh: TRAIN_FULL's steps on one fixed batch with a
+    checkpoint after ``save_at``, a restore into a fresh state that runs
+    the rest to the same bits, a second run from the same seed to the same
+    bits at ``save_at``, one step under deterministic algorithms, the last
+    step of the first run under the profiler, and the gradients of a
+    full-width cut (`_cut_grads`)."""
+    import tempfile
+    import warnings
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import get_config, get_train_overrides
+    from repro_torch.data.tokens import TokenDataset, TokenDatasetConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optim
+    from repro_torch.train.loop import TrainConfig, init_train_state, save_train_state
+
+    spec = TRAIN_FULL
+    cfg = dataclasses.replace(get_config(spec["arch"]), remat="full")
+    tcfg = TrainConfig(opt=optim.AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup"],
+                                             total_steps=spec["steps"]),
+                       **get_train_overrides(spec["arch"]))
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(0))
+    batch = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                                            global_batch=spec["rows"], seed=0),
+                         mesh=mesh, device=DEVICE)(0)
+    fixed = lambda i: batch  # noqa: E731
+    rec: dict = {"arch": spec["arch"], "dtype": cfg.dtype, "remat": cfg.remat,
+                 "tokens_per_step": spec["rows"] * spec["seq"],
+                 "microbatches": tcfg.microbatches, "zero1": tcfg.zero1,
+                 "n_params": cfg.n_params()}
+    ckpt_dir = tempfile.TemporaryDirectory(dir=_scratch())
+    try:
+        mgr = CheckpointManager(ckpt_dir.name, keep_last=2)
+        # run A: every step, a checkpoint after save_at
+        torch.cuda.reset_peak_memory_stats()
+        a = _train_run(model, tcfg, fixed, spec["save_at"], mesh=mesh)
+        sh = a["shardings"]
+        params, opt = a.pop("params"), a.pop("opt")
+        ts = time.perf_counter()
+        save_train_state(mgr, model, spec["save_at"], params, opt, sh)
+        rec["save_s"] = time.perf_counter() - ts
+        a2 = _train_run(model, tcfg, fixed, spec["steps"] - spec["save_at"], mesh=mesh,
+                        params=params, opt=opt, start=spec["save_at"], profile_last=True)
+        rec["profile"] = a2["profile"]
+        del params, opt
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        losses = a["loss"] + a2["loss"]
+        secs = a["s"] + a2["s"]
+        rec.update(loss=losses, grad_norm=a["grad_norm"] + a2["grad_norm"], step_s=secs)
+        end_a = _host_tree({"params": a2["params"], "opt": a2["opt"]})
+        del a, a2
+        torch.cuda.empty_cache()
+        # run B: restore the checkpoint into a fresh state, run the rest
+        tr = time.perf_counter()
+        params, opt, at = mgr.restore_train_state(model, mesh, sh, step=spec["save_at"])
+        rec["restore_s"] = time.perf_counter() - tr
+        restored = _host_tree({"params": params, "opt": opt})
+        b = _train_run(model, tcfg, fixed, spec["steps"] - spec["save_at"], mesh=mesh,
+                       params=params, opt=opt, start=at)
+        rec["restart_same_bits"] = bool(
+            b["loss"] == losses[spec["save_at"]:]
+            and _tree_equal({"params": b["params"], "opt": b["opt"]}, end_a))
+        del b, params, opt, end_a
+        torch.cuda.empty_cache()
+        # run C: the same seed again, to the checkpoint's bits
+        params, opt = init_train_state(model, mesh, sh, seed=0)
+        c = _train_run(model, tcfg, fixed, spec["save_at"], mesh=mesh, params=params, opt=opt)
+        rec["rerun_same_bits"] = bool(c["loss"] == losses[:spec["save_at"]]
+                                      and _tree_equal({"params": c["params"],
+                                                       "opt": c["opt"]}, restored))
+        del restored
+        # one step under deterministic algorithms: the ops it names
+        params, opt, step_fn = c.pop("params"), c.pop("opt"), c["step_fn"]
+        del c
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                params, opt, _ = step_fn(params, opt, batch)
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        rec["nondeterministic_ops"] = sorted({str(w.message).split("\n")[0][:200]
+                                              for w in caught
+                                              if "deterministic" in str(w.message)})
+        del params, opt, step_fn
+    finally:
+        ckpt_dir.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    del model
+    rec["cut_grads"] = _cut_grads(get_config(spec["arch"]))
+    timed = sorted(secs[1:-1])  # the first step warms up, the last is profiled
+    steady = timed[len(timed) // 2]
+    flops = 6 * cfg.n_params() * rec["tokens_per_step"]
+    bound = _train_bound(cfg, spec["rows"], spec["seq"])
+    rec["summary"] = {
+        "arch": spec["arch"], "s_per_step": steady, "first_step_s": secs[0],
+        "tokens_per_s": rec["tokens_per_step"] / steady,
+        "mfu": flops / (steady * BF16_DENSE_OPS_PER_S), "bound_s": bound["bound_s"],
+        "bound": bound, "peak_gb": rec["peak_gb"],
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "launches_per_step": rec["profile"]["launches_per_step"],
+        "device_idle_share": rec["profile"]["device_idle_share"],
+        "save_s": rec["save_s"], "restore_s": rec["restore_s"],
+        "seconds": time.perf_counter() - t0,
+    }
+    log(f"[train] olmo-1b {json.dumps({k: v for k, v in rec.items() if k != 'summary'})}")
+    log(f"[train] summary {json.dumps(rec['summary'])}")
+    bad = []
+    if not losses[0] - losses[-1] >= TRAIN_LOSS_FALL:
+        bad.append(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, under {TRAIN_LOSS_FALL}")
+    if not rec["restart_same_bits"]:
+        bad.append("restart from the checkpoint left the uninterrupted run's bits")
+    if not rec["rerun_same_bits"]:
+        bad.append("a second run from the same seed left the first run's bits")
+    if rec["nondeterministic_ops"]:
+        bad.append(f"nondeterministic ops: {rec['nondeterministic_ops']}")
+    if not all(math.isfinite(x) for x in losses):
+        bad.append("a loss is not finite")
+    if bad:
+        raise AssertionError(f"train olmo-1b: {bad}")
+    return rec
+
+
+def _train_bound(cfg, rows: int, seq: int) -> dict:
+    """The least time a training step could take on the card, from the
+    operations: 6·N·T for the forward and backward, 2·N·T for the forward
+    recomputed under full remat, and the attention products of the causal
+    band (forward, recompute and two backward products), all at the dense
+    bf16 rate; against the bytes of the state read and written once
+    (bf16 parameters and gradients, f32 m, v and accumulator)."""
+    n, t = cfg.n_params(), rows * seq
+    pairs = seq * (seq + 1) // 2
+    attn = 4 * rows * pairs * cfg.n_heads * cfg.head_dim * cfg.n_layers * 4
+    ops = 8 * n * t + attn
+    state_bytes = n * (2 * 2 + 4 * 2 * 2 + 4 * 2)
+    by = {"operations": ops / BF16_DENSE_OPS_PER_S, "bytes": state_bytes / HBM_BYTES_PER_S}
+    bound_by = max(by, key=by.get)
+    return {"ops": ops, "attention_ops": attn, "state_bytes": state_bytes,
+            "bound_s": by[bound_by], "bound_by": bound_by}
+
+
+def train_rank_main(rank: int, tmp: str) -> int:
+    """One of TRAIN_RANKS gloo rank processes sharing the card: (c) manual-dp
+    with grad_compress, TRAIN_REDUCED_STEPS steps on a ("data", "model") =
+    (4, 1) mesh of "cuda" devices and again of "cpu" devices; auto DP with
+    zero1 on the cuda mesh; (d) the sequence-sharded decode of
+    SEQ_SHARD_REDUCED on a (1, 4) cuda mesh. Outputs into
+    ``train<k>.npz``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), TRAIN_RANKS),
+        rank=rank, world_size=TRAIN_RANKS,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        out = {}
+        for tag, dev, modes in (("card", DEVICE, ("manual", "zero1")),
+                                ("cpu", "cpu", ("manual",))):
+            mesh = make_debug_mesh(n_model=1, device_type=dev)
+            out.update(_dp_runs(mesh, dev, modes=modes, tag=tag))
+        mesh = make_debug_mesh(n_data=1, n_model=TRAIN_RANKS, device_type=DEVICE)
+        out.update(_seq_shard_reduced(mesh))
+        np.savez(os.path.join(tmp, f"train{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _flat_state(prefix: str, run: dict) -> dict:
+    from repro_torch.models.layers import tree_leaves
+
+    out = {f"{prefix}.loss": np.asarray(run["loss"])}
+    for key, tree in (("p", run["params"]), ("m", run["opt"]["m"]), ("v", run["opt"]["v"]),
+                      ("err", run.get("err")), ("g", run.get("gmin"))):
+        for i, t in enumerate(tree_leaves(tree) if tree is not None else []):
+            if t is not None:
+                out[f"{prefix}.{key}{i}"] = t.detach().float().cpu().numpy()
+    return out
+
+
+def _dp_runs(mesh, dev: str, modes: tuple, tag: str) -> dict:
+    """(c) on this rank: manual-dp with grad_compress and/or auto DP with
+    zero1 over the mesh's data ranks, TRAIN_REDUCED_STEPS steps of
+    TRAIN_DP_ARCH's reduced config on this rank's rows."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.tokens import TokenDataset, TokenDatasetConfig
+    from repro_torch.interop import lm_params_from_arrays
+    from repro_torch.sharding.rules import default_rules
+    from repro_torch.train import optim
+    from repro_torch.train.grad_compress import init_error_tree
+    from repro_torch.train.loop import (
+        TrainConfig, full_opt_state, init_opt_state, make_train_step,
+    )
+
+    cfg = get_reduced(TRAIN_DP_ARCH)
+    tree = _lm_numpy_tree(cfg, 300)
+    ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=TRAIN_DP_SEQ,
+                                         global_batch=TRAIN_DP_ROWS, seed=4, structure=0.9),
+                      mesh=mesh, device=dev)
+    out = {}
+    for mode in modes:
+        tcfg = TrainConfig(opt=optim.AdamWConfig(**TRAIN_REDUCED_OPT),
+                           **({"mode": "manual-dp", "grad_compress": True} if mode == "manual"
+                              else {"zero1": True, "microbatches": 2}))
+        model = lm_params_from_arrays(cfg, tree, device=dev)
+        step_fn, sh = make_train_step(model, mesh, default_rules(mesh), tcfg)
+        params = _detached(model)
+        opt = init_opt_state(params, sh["placements"])
+        err = init_error_tree(params)
+        run = {"loss": [], "gmin": None}
+        for i in range(TRAIN_REDUCED_STEPS):
+            v_prev = opt["v"]
+            if mode == "manual":
+                params, opt, err, met = step_fn(params, opt, err, ds(i))
+                run["gmin"] = _gmin(run["gmin"], v_prev, opt["v"], tcfg.opt.b2)
+            else:
+                params, opt, met = step_fn(params, opt, ds(i))
+            run["loss"].append(float(met["loss"]))
+        # zero1's m/v are this rank's parts: gathered whole to compare
+        run.update(params=params, opt=full_opt_state(params, opt, sh["placements"]),
+                   err=err if mode == "manual" else None)
+        out.update(_flat_state(f"{mode}.{tag}", run))
+    return out
+
+
+def _seq_shard_decode(model, mesh, toks, prompt: int, steps: int, max_seq: int) -> dict:
+    """Prefill of the prompt, then ``steps`` decode steps fed the next
+    tokens: unsharded when ``mesh`` is None, else on this rank's shards
+    (``shard_caches``) through the sequence-sharded decode; the logits of
+    each step, the final caches (this rank's shards) and ms a step."""
+    from repro_torch.models.transformer import decode_rows, shard_caches
+
+    dev = model.weights.emb.device
+    b = toks.shape[0]
+    with torch.inference_mode():
+        _, caches = model.prefill(toks[:, :prompt], max_seq)
+        kw = {}
+        rows = slice(0, b)
+        if mesh is not None:
+            caches = shard_caches(model.cfg, caches, mesh)
+            kw = {"mesh": mesh}
+            rows = decode_rows(model.cfg, mesh, b)
+        logits = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            pos = torch.full((rows.stop - rows.start,), prompt + i, device=dev)
+            lg, caches = model.decode_step(caches, toks[rows, prompt + i:prompt + i + 1], pos,
+                                           **kw)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+    return {"logits": torch.stack(logits, 1).cpu(), "caches": _host_copy(caches), "ms": ms}
+
+
+def _seq_shard_model(spec: dict, dtype: str):
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.interop import lm_params_from_arrays
+    from repro_torch.models.model import build_model
+
+    if dtype == "float32":
+        cfg = dataclasses.replace(get_reduced(spec["arch"]), decode_seq_shard=True)
+        return lm_params_from_arrays(cfg, _lm_numpy_tree(cfg, 400), device=DEVICE)
+    cfg = dataclasses.replace(get_config(spec["arch"]), decode_seq_shard=True)
+    return build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(0))
+
+
+def _seq_shard_reduced(mesh) -> dict:
+    """(d) on this rank: SEQ_SHARD_REDUCED's decode on the (1, 4) mesh."""
+    spec = SEQ_SHARD_REDUCED
+    model = _seq_shard_model(spec, "float32")
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, model.cfg.vocab, (spec["rows"], spec["prompt"] + spec["steps"]))).to(DEVICE)
+    run = _seq_shard_decode(model, mesh, toks, spec["prompt"], spec["steps"], spec["max_seq"])
+    out = {"seq.logits": run["logits"].numpy()}
+    for i, c in enumerate(run["caches"]):
+        for k, v in c.items():
+            out[f"seq.cache{i}.{k}"] = v.float().numpy() if v.is_floating_point() else v.numpy()
+    return out
+
+
+def _train_four_ranks() -> list[dict]:
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=_scratch()) as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--train-rank", str(k), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for k in range(TRAIN_RANKS)]
+        try:
+            outs = [p.communicate(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for k, (p, (_, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"train rank {k} exited {p.returncode}:\n{err[-4000:]}")
+        return [dict(np.load(os.path.join(tmp, f"train{k}.npz"))) for k in range(TRAIN_RANKS)]
+
+
+def _keys(d: dict, prefix: str) -> list:
+    return sorted(k for k in d if k.startswith(prefix + "."))
+
+
+def _four_rank_checks() -> dict:
+    """(c) and (d)'s four ranks against their references: manual-dp on
+    the card against the same on the CPU (losses within TRAIN_F32_TOL, m, v
+    and error trees within TRAIN_MV_TOL, parameters within TRAIN_PARAM_ATOL
+    where every step's |g| > TRAIN_CLEAR); zero1 over four data ranks against one
+    rank over the whole batch on the card (the same); every rank's state
+    bitwise equal to rank 0's; the sequence-sharded decode against the
+    unsharded on the card (logits and caches within SEQ_SHARD_TOL, slot
+    positions equal)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.tokens import TokenDataset, TokenDatasetConfig
+    from repro_torch.interop import lm_params_from_arrays
+    from repro_torch.train import optim
+    from repro_torch.train.loop import TrainConfig
+
+    t0 = time.perf_counter()
+    ranks = _train_four_ranks()
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    row: dict = {"ranks": TRAIN_RANKS, "backend": "gloo", "seconds_with_spawn": spawn_s}
+    # every rank's state but its error-feedback residual (its own by design)
+    state_keys = [k for k in r0 if not k.startswith("seq.") and ".err" not in k]
+    row["every_rank_equals_rank0"] = all(
+        all(np.array_equal(rk[k], r0[k]) for k in state_keys) for rk in ranks[1:])
+
+    def close(a: dict, pa: str, b: dict, pb: str, flips: float = 0.0) -> dict:
+        """Losses within TRAIN_F32_TOL; m, v (and error trees) within
+        TRAIN_MV_TOL and the parameters within TRAIN_PARAM_ATOL where
+        every step's |g| in ``b`` > TRAIN_CLEAR, but for a share ``flips`` of the entries (int8
+        compression: a value on a rounding edge rounds either way), which
+        stay within the 2 lr a step can move an entry."""
+        res = {"loss_a": a[f"{pa}.loss"].tolist(), "loss_b": b[f"{pb}.loss"].tolist(),
+               "mv_max_abs_diff": 0.0, "param_max_abs_diff_clear": 0.0, "excused": 0,
+               "entries": 0, "off": 0, "mv_off": 0}
+        ok = np.allclose(a[f"{pa}.loss"], b[f"{pb}.loss"], **TRAIN_F32_TOL)
+        for kind in ("m", "v", "err"):
+            for ka in [k for k in _keys(a, pa) if k[len(pa) + 1:].startswith(kind)
+                       and k[len(pa) + 1 + len(kind):].isdigit()]:
+                kb = pb + ka[len(pa):]
+                d = np.abs(a[ka] - b[kb])
+                res["mv_max_abs_diff"] = max(res["mv_max_abs_diff"], float(d.max()))
+                res["mv_off"] += int((~np.isclose(
+                    a[ka], b[kb], rtol=TRAIN_MV_TOL["rtol"],
+                    atol=TRAIN_MV_TOL["atol"] * np.abs(b[kb]).max())).sum())
+        i = 0
+        bound = 2 * TRAIN_REDUCED_OPT["lr"] * TRAIN_REDUCED_STEPS
+        while f"{pa}.p{i}" in a:
+            clear = b[f"{pb}.g{i}"] > TRAIN_CLEAR
+            d = np.abs(a[f"{pa}.p{i}"] - b[f"{pb}.p{i}"])
+            res["entries"] += d.size
+            res["excused"] += int((~clear).sum())
+            res["off"] += int((clear & (d > TRAIN_PARAM_ATOL)).sum())
+            ok &= bool(d.max() <= bound)
+            if clear.any():
+                res["param_max_abs_diff_clear"] = max(res["param_max_abs_diff_clear"],
+                                                      float(d[clear].max()))
+            i += 1
+        res["ok"] = bool(ok and res["off"] <= flips * res["entries"]
+                         and res["mv_off"] <= flips * 3 * res["entries"])
+        return res
+
+    row["manual_dp_compress_card_vs_cpu"] = close(r0, "manual.card", r0, "manual.cpu",
+                                                  flips=TRAIN_FLIPS)
+    # one rank over the whole batch, on the card, for zero1's reference
+    cfg = get_reduced(TRAIN_DP_ARCH)
+    model = lm_params_from_arrays(cfg, _lm_numpy_tree(cfg, 300), device=DEVICE)
+    ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=TRAIN_DP_SEQ,
+                                         global_batch=TRAIN_DP_ROWS, seed=4, structure=0.9),
+                      device=DEVICE)
+    one = _train_run(model, TrainConfig(opt=optim.AdamWConfig(**TRAIN_REDUCED_OPT),
+                                        microbatches=2), ds, TRAIN_REDUCED_STEPS, track=True)
+    row["zero1_4ranks_vs_1rank"] = close(r0, "zero1.card", _flat_state("one", one), "one")
+    # (d): the four ranks' sequence-sharded decode against the unsharded
+    spec = SEQ_SHARD_REDUCED
+    m32 = _seq_shard_model(spec, "float32")
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, m32.cfg.vocab, (spec["rows"], spec["prompt"] + spec["steps"]))).to(DEVICE)
+    ref = _seq_shard_decode(m32, None, toks, spec["prompt"], spec["steps"], spec["max_seq"])
+    seq = {"logits_max_abs_diff": float(np.abs(r0["seq.logits"] - ref["logits"].numpy()).max())}
+    ok = np.allclose(r0["seq.logits"], ref["logits"].numpy(), **SEQ_SHARD_TOL)
+    worst = 0.0
+    for i, c in enumerate(ref["caches"]):
+        for k, v in c.items():
+            full = np.concatenate([rk[f"seq.cache{i}.{k}"] for rk in ranks], axis=1)
+            want = v.float().numpy() if v.is_floating_point() else v.numpy()
+            if k == "slot_pos":
+                ok &= np.array_equal(full, want)
+            else:
+                worst = max(worst, float(np.abs(full - want).max()))
+                ok &= np.allclose(full, want, **SEQ_SHARD_TOL)
+    seq.update(cache_max_abs_diff=worst, tol=SEQ_SHARD_TOL, ok=bool(ok))
+    row["seq_shard_4ranks_vs_unsharded"] = seq
+    log(f"[train] four gloo ranks on one card {json.dumps(row)}")
+    if not (row["every_rank_equals_rank0"] and row["manual_dp_compress_card_vs_cpu"]["ok"]
+            and row["zero1_4ranks_vs_1rank"]["ok"] and seq["ok"]):
+        raise AssertionError(f"train four ranks: {row}")
+    return row
+
+
+def _seq_shard_full(mesh) -> dict:
+    """(d) gemma3-4b at full width and depth in bf16: SEQ_SHARD_FULL's
+    decode through the sequence-sharded path on the one-rank mesh against
+    the unsharded decode, within phase_lm's bf16 limits; ms a step of each."""
+    spec = SEQ_SHARD_FULL
+    model = _seq_shard_model(spec, "bfloat16")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, model.cfg.vocab, (spec["rows"], spec["prompt"] + spec["steps"]))).to(DEVICE)
+    n = spec["prompt"] + spec["steps"]
+    runs = {}
+    for tag, m in (("warm-up", mesh), ("unsharded", None), ("seq_sharded", mesh)):
+        runs[tag] = _seq_shard_decode(model, m, toks, spec["prompt"], spec["steps"], n)
+    got, want = runs["seq_sharded"]["logits"], runs["unsharded"]["logits"]
+    diff = (got - want).abs()
+    norm = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    row = {"arch": spec["arch"], "rows": spec["rows"], "prompt": spec["prompt"],
+           "decode_steps": spec["steps"], "max_abs_diff": diff.max().item(),
+           "max_norm_rel": norm, "ms_per_step_seq_sharded": runs["seq_sharded"]["ms"],
+           "ms_per_step_unsharded": runs["unsharded"]["ms"],
+           "ok": bool((diff <= LM_BF16_ATOL + LM_BF16_RTOL * want.abs()).all()
+                      and norm <= LM_BF16_NORM)}
+    del model, runs
+    torch.cuda.empty_cache()
+    log(f"[train] seq-sharded decode, one NCCL rank {json.dumps(row)}")
+    if not row["ok"]:
+        raise AssertionError(f"seq-sharded decode against unsharded: {row}")
+    return row
+
+
+def phase_train() -> None:
+    """The LM training path of the port on the card (no kernel of its own:
+    the reference trains in ``jnp``).
+
+    (a) The reduced configurations of all ten archs in f32: three steps of
+        ``make_train_step`` card against CPU, and remat "full" to the bits
+        of "none" (`_train_reduced`).
+    (b) olmo-1b at full width and depth in bf16 on a one-rank NCCL mesh
+        (`_train_full`), with ``[train]`` lines of s a step, tokens/s,
+        MFU, the bound, peak memory, launches and the idle share.
+    (c) Four gloo ranks sharing the card: manual-dp with grad_compress
+        against the CPU, zero1 against one rank (`_four_rank_checks`).
+    (d) The sequence-sharded decode: four gloo ranks at reduced size
+        against the unsharded decode, and gemma3-4b at full width on the
+        one NCCL rank (`_seq_shard_full`).
+    """
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rec: dict = {}
+    t = time.perf_counter()
+    rec["reduced"] = _train_reduced()
+    rec["reduced_s"] = time.perf_counter() - t
+    torch.cuda.set_device(0)
+    store_dir = tempfile.TemporaryDirectory(dir=_scratch())
+    dist.init_process_group(
+        "nccl" if DEVICE == "cuda" else "gloo",
+        store=dist.FileStore(os.path.join(store_dir.name, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = make_debug_mesh(device_type=DEVICE)
+        t = time.perf_counter()
+        rec["olmo"] = _train_full(mesh)
+        rec["olmo_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec["seq_shard_full"] = _seq_shard_full(mesh)
+        rec["seq_shard_full_s"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+        store_dir.cleanup()
+    t = time.perf_counter()
+    rec["four_ranks"] = _four_rank_checks()
+    rec["four_ranks_s"] = time.perf_counter() - t
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase {rec['seconds']:.1f} s")
+    RECORD["phases"]["train"] = rec
+
+
 def _write_record(t0: float) -> None:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2798,10 +3569,16 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--dist-rank"]:
         return dist_rank_main(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--train-rank"]:
+        return train_rank_main(int(sys.argv[2]), sys.argv[3])
     t0 = time.perf_counter()
-    _, kind = phase_env()
+    smi, kind = phase_env()
     if "--only-lm" in sys.argv[1:]:
         phase_lm()
+        _write_record(t0)
+        return 0
+    if "--only-train" in sys.argv[1:]:
+        phase_train()
         _write_record(t0)
         return 0
     phase_build()
@@ -2819,7 +3596,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_lm()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train()
     _write_record(t0)
+    log(smi)  # again near the end, where a tail of the output still shows it
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

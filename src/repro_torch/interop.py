@@ -19,11 +19,17 @@ the very same instance and operands to the port:
   parameter tree (decoder-only or encoder-decoder) into the port's
   :class:`~repro_torch.models.model.Model`, and :func:`lm_caches_from_arrays`
   turns a reference decode-cache tree (K/V caches and recurrent states)
-  into the port's per-layer caches.
+  into the port's per-layer caches;
+* :func:`reference_layout` arranges any tree in the port's per-layer
+  layout (parameters, optimizer moments, logical axes) in the reference's
+  stacked one and :func:`port_layout` back, :func:`lm_arrays_from_params` (the inverse of
+  :func:`lm_params_from_arrays`) gives the reference's numpy parameter
+  tree, and :func:`train_state_from_arrays` brings the reference's
+  optimizer state (``m``, ``v``, ``step``) into the port's layout.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -156,6 +162,34 @@ def _as_dtypes(tree: Any, like: Any, device) -> Any:
     return _tensor(tree, device, like.dtype)
 
 
+def _take_layer(x, i, n):
+    return x if i is None else x[i]
+
+
+def port_layout(cfg: ModelConfig, tree: dict, leaf: Callable = _take_layer) -> dict:
+    """A tree in the reference's stacked parameter layout (the inverse of
+    :func:`reference_layout`) in the port's per-layer one: each port leaf is
+    ``leaf(x, i, n)`` of the reference leaf ``x`` it comes from, layer ``i``
+    of the ``n`` that ``x`` stacks (``i`` None: ``x`` is not stacked);
+    by default ``x[i]``."""
+    def unstacked(t):
+        return tree_map(lambda x: leaf(x, None, None), t)
+
+    def stacked(t, i, n):
+        return tree_map(lambda x: leaf(x, i, n), t)
+
+    if cfg.arch_type == "encdec":
+        out = {k: unstacked(tree[k]) for k in ("emb", "frontend_proj", "final_norm")}
+        out["enc"] = [stacked(tree["enc"], i, cfg.enc_layers) for i in range(cfg.enc_layers)]
+        out["dec"] = [stacked(tree["dec"], i, cfg.dec_layers) for i in range(cfg.dec_layers)]
+        return out
+    n_cycles, _ = _layer_plan(cfg)
+    layers = [stacked(tree["cycles"][j], i, n_cycles)
+              for i in range(n_cycles) for j in range(len(cfg.pattern))]
+    return {"emb": unstacked(tree["emb"]), "final_norm": unstacked(tree["final_norm"]),
+            "layers": layers + [unstacked(r) for r in tree["rem"]]}
+
+
 def lm_params_from_arrays(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
     """The port's Model holding the reference's parameters. ``tree`` is the
     reference's parameter pytree as numpy: for a decoder ``emb``,
@@ -165,14 +199,7 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
     dtype the port gives that parameter (the model dtype, f32 for the
     RG-LRU's ``lambda``)."""
     shapes, _ = abstract_params(cfg)
-    if cfg.arch_type == "encdec":
-        ours = {k: tree[k] for k in ("emb", "frontend_proj", "final_norm")}
-        ours["enc"] = _unstack(tree["enc"], cfg.enc_layers)
-        ours["dec"] = _unstack(tree["dec"], cfg.dec_layers)
-    else:
-        ours = {"emb": tree["emb"], "final_norm": tree["final_norm"],
-                "layers": _per_layer(cfg, tree["cycles"], tree["rem"])}
-    return Model(cfg, device=device, params=_as_dtypes(ours, shapes, device))
+    return Model(cfg, device=device, params=_as_dtypes(port_layout(cfg, tree), shapes, device))
 
 
 def lm_caches_from_arrays(cfg: ModelConfig, tree: dict, device="cuda") -> list[dict]:
@@ -185,3 +212,78 @@ def lm_caches_from_arrays(cfg: ModelConfig, tree: dict, device="cuda") -> list[d
     else:
         layers = _per_layer(cfg, tree["cycles"], tree["rem"])
     return [tree_map(lambda a: _tensor(a, device), c) for c in layers]
+
+
+def _stack_trees(trees: list, stack: Callable, is_leaf: Callable) -> Any:
+    """One tree whose leaves are ``stack`` of the leaves at that place in
+    ``trees`` (None for no trees: the reference's empty cycle slot)."""
+    if not trees:
+        return None
+    first = trees[0]
+    if is_leaf(first):
+        return stack(trees)
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees], stack, is_leaf) for k in first}
+    return [_stack_trees([t[i] for t in trees], stack, is_leaf) for i in range(len(first))]
+
+
+def _is_tensor(x) -> bool:
+    return not isinstance(x, (dict, list))
+
+
+def reference_layout(cfg: ModelConfig, tree: dict, stack: Callable,
+                     is_leaf: Callable = _is_tensor) -> dict:
+    """``tree`` in the port's layout (``layers`` in execution order, or
+    ``enc``/``dec`` lists) in the reference's: ``cycles[j]`` holds layer
+    ``j`` of every full cycle of the pattern, each leaf ``stack`` of that
+    leaf over the cycles (None when no cycle is full), ``rem[i]`` the
+    remainder layers as they are; an encoder-decoder's ``enc`` and ``dec``
+    stacked over their layers. ``is_leaf`` tells leaves from the tree's
+    dicts and lists (a tree of logical-axes tuples passes its own)."""
+    if cfg.arch_type == "encdec":
+        out = {k: tree[k] for k in ("emb", "frontend_proj", "final_norm")}
+        out["enc"] = _stack_trees(tree["enc"], stack, is_leaf)
+        out["dec"] = _stack_trees(tree["dec"], stack, is_leaf)
+        return out
+    n_cycles, rem = _layer_plan(cfg)
+    c, layers = len(cfg.pattern), tree["layers"]
+    return {"emb": tree["emb"], "final_norm": tree["final_norm"],
+            "cycles": [_stack_trees([layers[i * c + j] for i in range(n_cycles)], stack,
+                                    is_leaf) for j in range(c)],
+            "rem": list(layers[n_cycles * c:])}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_arrays_from_params(cfg: ModelConfig, params: dict) -> dict:
+    """The reference's numpy parameter tree (the layout
+    :func:`lm_params_from_arrays` takes) from the port's parameter tree or
+    Model. bf16 leaves widen to f32 (exactly: numpy has no bf16 without
+    ``ml_dtypes``); the reference's ``jnp.asarray(a, dtype)`` rounds them
+    back to the same bits."""
+    if isinstance(params, Model):
+        params = params.params
+    tree = reference_layout(cfg, params, lambda ts: torch.stack([t.detach().cpu() for t in ts]))
+    return tree_map(lambda t: None if t is None else _numpy(t), tree)
+
+
+def _leaf_tensor(a, device, dtype=None) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return _tensor(a, device, dtype)
+
+
+def train_state_from_arrays(cfg: ModelConfig, opt: dict, device="cuda") -> dict:
+    """The port's optimizer state from the reference's: ``opt`` holds
+    ``m`` and ``v`` in the reference's stacked parameter layout (numpy
+    arrays or tensors) and ``step``; ``m``/``v`` become per-layer f32
+    tensors on ``device``, ``step`` an int32 scalar."""
+    def layout(tree):
+        return tree_map(lambda a: _leaf_tensor(a, device, torch.float32),
+                        port_layout(cfg, tree))
+
+    return {"m": layout(opt["m"]), "v": layout(opt["v"]),
+            "step": _leaf_tensor(np.asarray(opt["step"], np.int32), device)}

@@ -8,7 +8,9 @@ reference's score products ask for f32 results (``preferred_element_type``);
 here they run on f32 copies of their operands, so bf16 scores are never
 rounded to bf16. Probabilities are cast to the model dtype before the PV
 product, as the reference casts them. The sequence-sharded split-KV decode
-waits for the sharding slice of the port.
+(:func:`decode_append_attend_seqsharded`) reassembles the exact softmax
+from per-rank partial statistics with explicit collectives where the
+reference uses ``shard_map`` with ``pmax``/``psum``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.layers import apply_rope, dtype_scalar, init_linear
 
@@ -190,3 +193,56 @@ def decode_attention(cfg: AttnConfig, q, k_cache, v_cache, pos, slot_positions) 
     p = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bhgk,bkhe->bhge", p, v_cache)
     return out.reshape(q.shape[0], 1, cfg.n_heads, cfg.head_dim)
+
+
+def decode_append_attend_seqsharded(
+    cfg: AttnConfig, mesh, axis: str,
+    q, k1, v1, k_cache, v_cache, pos, slot_positions,
+):
+    """Split-KV decode with in-shard cache append (FlashDecoding across
+    ranks).
+
+    This rank holds one contiguous shard of the cache's sequence dimension:
+    shard ``i`` of the ``axis`` group of ``mesh`` (a ``DeviceMesh``) holds
+    slots ``[i * S_local, (i + 1) * S_local)`` of ``S_total = S_local *
+    size``. Its rows are its shard of the batch over the config's
+    ``decode_batch_axes`` (the caller hands every argument as this rank's
+    rows; the reference's ``shard_map`` splits them). The new token's K/V is written by the one
+    shard that owns slot ``pos % S_total``; then each rank takes its partial
+    max, the group's max (``all_reduce(MAX)``), ``p = exp(s - m_glob)``, and
+    the group's sums (``all_reduce(SUM)``) of ``l`` and of the weighted V;
+    the result is ``o / max(l, 1e-30)``. The per-token collective volume is
+    O(B * Hq * hd). Writes into the cache shards it is given and returns
+    (attn_out, k_cache, v_cache, slot_positions).
+    """
+    group = mesh.get_group(axis)
+    shard = mesh.get_local_rank(axis)
+    s_local = k_cache.shape[1]
+    s_total = s_local * mesh.size(mesh.mesh_dim_names.index(axis))
+    b = q.shape[0]
+    bidx = torch.arange(b, device=q.device)
+    slot = pos % s_total
+    local = slot - shard * s_local
+    mine = (local >= 0) & (local < s_local)
+    local_c = torch.clamp(local, 0, s_local - 1)
+    k_cache[bidx, local_c] = torch.where(mine[:, None, None], k1[:, 0], k_cache[bidx, local_c])
+    v_cache[bidx, local_c] = torch.where(mine[:, None, None], v1[:, 0], v_cache[bidx, local_c])
+    slot_positions[bidx, local_c] = torch.where(mine, pos.to(torch.int32),
+                                                slot_positions[bidx, local_c])
+
+    qg = _expand_gqa(_scaled_q(cfg, q), cfg.n_kv)[:, 0]
+    s = torch.einsum("bhge,bkhe->bhgk", qg.float(), k_cache.float())
+    valid = (slot_positions >= 0) & (slot_positions <= pos[:, None])
+    if cfg.window is not None:
+        valid &= (pos[:, None] - slot_positions) < cfg.window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m_glob = s.amax(dim=-1)                                   # (B, Hkv, G)
+    dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(s - m_glob[..., None])
+    l_glob = p.sum(dim=-1)
+    o_glob = torch.einsum("bhgk,bkhe->bhge", p.to(q.dtype).float(), v_cache.float())
+    dist.all_reduce(l_glob, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(o_glob, op=dist.ReduceOp.SUM, group=group)
+    out = o_glob / torch.clamp_min(l_glob, 1e-30)[..., None]
+    out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim).to(q.dtype)
+    return out, k_cache, v_cache, slot_positions

@@ -30,6 +30,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.layers import MLPConfig, apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.models.remat import checkpoint_name
 
 ATTN_KINDS = ("attn+mlp", "local+mlp", "enc+mlp", "attn+moe")
 
@@ -205,14 +206,22 @@ def block_apply(
         h = apply_norm(cfg.norm_kind, params["norm1"], x)
         if decode:
             q, k1, v1 = A.project_qkv(acfg, params["attn"], h, positions[:, None])
-            if cfg.decode_seq_shard and mesh is not None:
+            if cfg.kv_cache_dtype == "int8" and cfg.decode_seq_shard and mesh is not None:
                 raise NotImplementedError(
-                    "the sequence-sharded decode (the reference's "
-                    "decode_append_attend_seqsharded) waits for the port's sharding "
-                    "slice; pass mesh=None")
-            new_cache = _append_kv_cache(cache, k1, v1, positions)
-            kd, vd = _cache_kv_views(cfg, new_cache)
-            attn_out = A.decode_attention(acfg, q, kd, vd, positions, new_cache["slot_pos"])
+                    "int8 KV + sequence-sharded decode not wired together yet; "
+                    "use one or the other (tracked as future work)"
+                )
+            if cfg.decode_seq_shard and mesh is not None:
+                attn_out, kc, vc, sp = A.decode_append_attend_seqsharded(
+                    acfg, mesh, cfg.decode_seq_axis, q, k1, v1,
+                    cache["k"], cache["v"], positions, cache["slot_pos"],
+                )
+                new_cache = {"k": kc, "v": vc, "slot_pos": sp}
+            else:
+                new_cache = _append_kv_cache(cache, k1, v1, positions)
+                kd, vd = _cache_kv_views(cfg, new_cache)
+                attn_out = A.decode_attention(acfg, q, kd, vd, positions,
+                                              new_cache["slot_pos"])
         else:
             q, k, v = A.project_qkv(acfg, params["attn"], h, positions[None, :])
             if cfg.q_chunk and x.shape[1] > cfg.q_chunk:
@@ -224,13 +233,14 @@ def block_apply(
                 attn_out = A.attention_full(acfg, q, k, v, positions, positions)
             if cache is not None:
                 new_cache = _fill_kv_cache(cache, k, v, positions)
-        x = x + A.output_proj(acfg, params["attn"], attn_out)
+        # named for the "save_tp" remat policy, which keeps these two
+        x = x + checkpoint_name(A.output_proj(acfg, params["attn"], attn_out), "tp_attn_out")
         h = apply_norm(cfg.norm_kind, params["norm2"], x)
         if kind == "attn+moe":
             y, aux = M.apply_moe(_moe_cfg(cfg), params["moe"], h)
         else:
             y = apply_mlp(_mlp_cfg(cfg), params["mlp"], h)
-        return x + y, new_cache, aux
+        return x + checkpoint_name(y, "tp_mlp_out"), new_cache, aux
 
     if kind == "rglru+mlp":
         h = apply_norm(cfg.norm_kind, params["norm1"], x)

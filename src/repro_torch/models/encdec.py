@@ -24,6 +24,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models.layers import (
     MLPConfig, apply_mlp, apply_norm, init_embedding, init_linear, init_mlp, init_norm,
 )
+from repro_torch.models.remat import maybe_remat
 from repro_torch.models.transformer import embed_tokens, logits_from
 
 
@@ -77,8 +78,9 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, T, d_model) stub embeddings -> encoder states."""
     x = torch.matmul(frames.to(cfg.torch_dtype), params["frontend_proj"])
     positions = torch.arange(x.shape[1], device=x.device)
+    layer = maybe_remat(cfg.remat, lambda x, p: B.block_apply("enc+mlp", cfg, p, x, positions)[0])
     for p in params["enc"]:
-        x, _, _ = B.block_apply("enc+mlp", cfg, p, x, positions)
+        x = layer(x, p)
     return x
 
 
@@ -132,10 +134,15 @@ def decoder_forward(cfg, params, tokens: torch.Tensor, enc_out: torch.Tensor,
     """Returns (logits, new caches or None). Decode: tokens (B, 1), pos (B,)."""
     x = embed_tokens(cfg, params, tokens)
     positions = pos if decode else torch.arange(x.shape[1], device=x.device)
+    # without caches (a training or plain forward) each layer runs under
+    # cfg.remat, as the reference's scanned decoder body
+    layer = maybe_remat(cfg.remat if caches is None and not decode else "none",
+                        lambda x, p, ekv, c: _dec_layer(cfg, p, x, ekv, positions,
+                                                        cache=c, decode=decode))
     new_caches = None if caches is None else []
     for i, (p, ekv) in enumerate(zip(params["dec"], _enc_kv(params, enc_out))):
         c = None if caches is None else caches[i]
-        x, nc = _dec_layer(cfg, p, x, ekv, positions, cache=c, decode=decode)
+        x, nc = layer(x, p, ekv, c)
         if caches is not None:
             new_caches.append(nc)
     x = apply_norm(cfg.norm_kind, params["final_norm"], x)

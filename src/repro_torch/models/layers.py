@@ -22,13 +22,15 @@ import torch.nn.functional as F
 
 # ------------------------------------------------------------------- pytrees
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nest of dicts, lists and tuples."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nest of dicts, lists and tuples (to
+    the leaves at the same place in ``rest``, trees of the same structure,
+    as further arguments)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:

@@ -219,8 +219,12 @@ class Model(nn.Module):
         """The encoder-decoder's encoder over stub frame embeddings."""
         return E.encode(self.cfg, self.params, frames)
 
-    def loss_fn(self, batch, mesh=None):
-        return self._mod.loss_fn(self.cfg, self.params, batch, mesh=mesh)
+    def loss_fn(self, batch, mesh=None, params: Optional[dict] = None):
+        """(loss, {"ce", "aux"}) at the model's parameters, or at ``params``
+        (a tree of the same layout: a train step's leaves that require
+        grad)."""
+        return self._mod.loss_fn(self.cfg, self.params if params is None else params, batch,
+                                 mesh=mesh)
 
     @torch.inference_mode()
     def prefill(self, *args, **kw):

@@ -6,7 +6,10 @@ in a plain Python loop in that execution order: cycle ``i``, kind ``j`` is
 layer ``i * len(pattern) + j``, and the remainder layers come last. The
 parameters are ``{"emb", "final_norm", "layers": [one dict per layer]}`` and
 the decode caches a list of per-layer dicts (K/V caches, or a recurrent
-block's state), both in that order.
+block's state), both in that order. With ``cfg.decode_seq_shard`` and a
+mesh, ``decode_step`` runs the sequence-sharded split-KV decode on this
+rank's shards (:func:`shard_caches`, :func:`decode_rows`). Without caches,
+each cycle of layers runs under ``cfg.remat`` (``models.remat``).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import apply_norm, dtype_scalar, init_embedding, init_norm
+from repro_torch.models.remat import maybe_remat
 
 
 def _layer_plan(cfg):
@@ -53,17 +57,35 @@ def init_params(cfg, generator: Optional[torch.Generator] = None, device=None):
 # ---------------------------------------------------------------------------
 
 def _run_layers(cfg, params, x, positions, caches=None, decode=False, mesh=None):
-    """Shared depth loop. caches: None | list of per-layer dicts."""
-    aux = 0.0
-    new_caches = None if caches is None else []
-    for i, kind in enumerate(layer_kinds(cfg)):
-        c = caches[i] if caches is not None else None
-        x, nc, a = B.block_apply(kind, cfg, params["layers"][i], x, positions,
-                                 cache=c, decode=decode, mesh=mesh)
-        aux = aux + a
-        if caches is not None:
-            new_caches.append(nc)
-    return x, new_caches, aux
+    """Shared depth loop. caches: None | list of per-layer dicts.
+
+    Each full cycle of the pattern runs as one body, under ``cfg.remat``
+    (``models.remat``) when there are no caches and no decode, as the
+    reference wraps its scanned cycle body; the remainder layers follow.
+    """
+    n_cycles, rem_kinds = _layer_plan(cfg)
+    c = len(cfg.pattern)
+    layers = params["layers"]
+    layer_caches = caches if caches is not None else [None] * cfg.n_layers
+
+    def span(kinds, x, aux, ps, cs):
+        new = []
+        for kind, p, cache in zip(kinds, ps, cs):
+            x, nc, a = B.block_apply(kind, cfg, p, x, positions, cache=cache,
+                                     decode=decode, mesh=mesh)
+            aux = aux + a
+            new.append(nc)
+        return x, aux, new
+
+    cycle = maybe_remat(cfg.remat if caches is None and not decode else "none", span)
+    aux, new_caches = 0.0, []
+    for i in range(n_cycles + 1):
+        lo = i * c
+        run, kinds = (cycle, cfg.pattern) if i < n_cycles else (span, rem_kinds)
+        hi = lo + len(kinds)
+        x, aux, new = run(kinds, x, aux, layers[lo:hi], layer_caches[lo:hi])
+        new_caches.extend(new)
+    return x, (new_caches if caches is not None else None), aux
 
 
 def embed_tokens(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -117,6 +139,43 @@ def init_caches(cfg, batch: int, max_seq: int, device) -> list[dict]:
     dtype = cfg.torch_dtype
     return [B.block_cache(kind, cfg, batch, max_seq, dtype, device)
             for kind in layer_kinds(cfg)]
+
+
+def decode_rows(cfg, mesh, batch: int) -> slice:
+    """This rank's rows of a decode batch under the sequence-sharded
+    decode: its contiguous shard over ``cfg.decode_batch_axes`` (all rows
+    when that is None or not an axis of ``mesh``)."""
+    ax = cfg.decode_batch_axes
+    if ax is None or ax not in mesh.mesh_dim_names:
+        return slice(0, batch)
+    n = mesh.size(mesh.mesh_dim_names.index(ax))
+    if batch % n:
+        raise ValueError(f"a batch of {batch} does not split over {n} {ax!r} ranks")
+    r = mesh.get_local_rank(ax)
+    return slice(r * (batch // n), (r + 1) * (batch // n))
+
+
+def shard_caches(cfg, caches: list[dict], mesh) -> list[dict]:
+    """This rank's shards of full decode caches (a prefill's) for
+    ``decode_step(..., mesh=mesh)`` with ``cfg.decode_seq_shard``: every
+    entry's rows by :func:`decode_rows`, and a K/V cache's slots (with
+    their ``slot_pos``) by the rank's contiguous shard over
+    ``cfg.decode_seq_axis``. Fresh tensors: the decode writes into them."""
+    ax = cfg.decode_seq_axis
+    n = mesh.size(mesh.mesh_dim_names.index(ax))
+    r = mesh.get_local_rank(ax)
+    out = []
+    for kind, c in zip(layer_kinds(cfg), caches):
+        rows = decode_rows(cfg, mesh, next(iter(c.values())).shape[0])
+        if kind in B.ATTN_KINDS:
+            s_c = c["k"].shape[1]
+            if s_c % n:
+                raise ValueError(f"a cache of {s_c} slots does not split over {n} {ax!r} ranks")
+            per = s_c // n
+            out.append({k: v[rows, r * per:(r + 1) * per].clone() for k, v in c.items()})
+        else:
+            out.append({k: v[rows].clone() for k, v in c.items()})
+    return out
 
 
 def prefill(cfg, params, tokens: torch.Tensor, max_seq: int,

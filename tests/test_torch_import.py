@@ -37,6 +37,14 @@ def test_port_modules_listed():
         assert f"repro_torch.configs.{arch}" in MODULES
 
 
+def test_training_slice_modules_listed():
+    for name in ("launch", "launch.mesh", "sharding", "sharding.rules", "runtime",
+                 "runtime.fault", "data", "data.tokens", "train", "train.optim",
+                 "train.grad_compress", "train.loop", "ckpt", "ckpt.manager",
+                 "models.remat"):
+        assert f"repro_torch.{name}" in MODULES
+
+
 def test_import_without_jax_loads_no_reference_module():
     code = textwrap.dedent(f"""
         import importlib, sys
