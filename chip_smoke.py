@@ -2845,6 +2845,23 @@ TRAIN_DP_SEQ = 16
 SEQ_SHARD_REDUCED = dict(arch="gemma3-4b", rows=2, prompt=12, steps=6, max_seq=32)
 SEQ_SHARD_TOL = {"atol": 1e-5, "rtol": 1e-5}
 SEQ_SHARD_FULL = dict(arch="gemma3-4b", rows=4, prompt=1024, steps=16)
+SEQ_SHARD_F32 = 1e-4       # f32 seq-sharded against unsharded: relative norm a position
+# (e) tensor and expert parallelism on the four gloo ranks sharing the card:
+# full-width cuts of `layers` layers on a ("data", "model") mesh, rows x
+# seq tokens a step, each `steps` steps in f32 against one rank of the same
+# cut on the card (the one rank's process is rank 0, after the mesh's
+# run), then in bf16 timed with one step profiled. The arch's
+# TRAIN_OVERRIDES where `overrides` (olmo: microbatches 2, zero1). Where
+# `save`, the bf16 state is then checkpointed (`_tp_save`).
+TRAIN_TP = (
+    dict(arch="olmo-1b", layers=2, mesh=(2, 2), rows=4, seq=4096, steps=3, overrides=True,
+         save=True),
+    dict(arch="qwen2-moe-a2.7b", layers=1, mesh=(1, 4), rows=2, seq=2048, steps=2,
+         overrides=False),
+)
+TRAIN_TP_LOSS_RTOL = 1e-6  # f32 losses, mesh against one rank
+TRAIN_TP_GRAD = 1e-4       # f32 first-step gradient: each leaf's relative norm of the difference
+TRAIN_TP_BF16_STEPS = 3    # timed bf16 steps (the first warms up), then one profiled
 
 
 def _detached(model) -> dict:
@@ -2856,17 +2873,19 @@ def _detached(model) -> dict:
 def _train_run(model, tcfg, batches, steps: int, mesh=None, params=None, opt=None,
                start: int = 0, track: bool = False, profile_last: bool = False) -> dict:
     """``steps`` steps of ``make_train_step`` from ``params``/``opt`` (the
-    model's own parameters and a fresh state when None), ``batches(i)``
+    model's own parameters, this rank's shards of them on a model axis,
+    and a fresh state when None), ``batches(i)``
     the rank's batch of step i; the state after each step's sync, the
     losses, gradient norms and seconds a step; with ``track``, each
     entry's smallest |g| over the steps (``gmin``); with ``profile_last``,
     the last step under the profiler (``profile``, `_profiled`)."""
     from repro_torch.sharding.rules import default_rules
+    from repro_torch.sharding.tp import shard_params
     from repro_torch.train.loop import init_opt_state, make_train_step
 
     step_fn, sh = make_train_step(model, mesh, default_rules(mesh), tcfg)
     if params is None:
-        params = _detached(model)
+        params = shard_params(_detached(model), sh["tp"])
         opt = init_opt_state(params, sh["placements"])
     out = {"loss": [], "grad_norm": [], "s": [], "shardings": sh}
     gmin = None
@@ -3229,6 +3248,8 @@ def train_rank_main(rank: int, tmp: str) -> int:
             out.update(_dp_runs(mesh, dev, modes=modes, tag=tag))
         mesh = make_debug_mesh(n_data=1, n_model=TRAIN_RANKS, device_type=DEVICE)
         out.update(_seq_shard_reduced(mesh))
+        for spec in TRAIN_TP:
+            out.update(_tp_run(spec, rank))
         np.savez(os.path.join(tmp, f"train{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
@@ -3263,14 +3284,14 @@ def _dp_runs(mesh, dev: str, modes: tuple, tag: str) -> dict:
 
     cfg = get_reduced(TRAIN_DP_ARCH)
     tree = _lm_numpy_tree(cfg, 300)
-    ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=TRAIN_DP_SEQ,
-                                         global_batch=TRAIN_DP_ROWS, seed=4, structure=0.9),
-                      mesh=mesh, device=dev)
     out = {}
     for mode in modes:
         tcfg = TrainConfig(opt=optim.AdamWConfig(**TRAIN_REDUCED_OPT),
                            **({"mode": "manual-dp", "grad_compress": True} if mode == "manual"
                               else {"zero1": True, "microbatches": 2}))
+        ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=TRAIN_DP_SEQ,
+                                             global_batch=TRAIN_DP_ROWS, seed=4, structure=0.9),
+                          mesh=mesh, device=dev, microbatches=tcfg.row_microbatches)
         model = lm_params_from_arrays(cfg, tree, device=dev)
         step_fn, sh = make_train_step(model, mesh, default_rules(mesh), tcfg)
         params = _detached(model)
@@ -3322,22 +3343,24 @@ def _seq_shard_decode(model, mesh, toks, prompt: int, steps: int, max_seq: int) 
     return {"logits": torch.stack(logits, 1).cpu(), "caches": _host_copy(caches), "ms": ms}
 
 
-def _seq_shard_model(spec: dict, dtype: str):
+def _seq_shard_model(spec: dict, dtype: str = "float32", reduced: bool = True):
+    """The reduced config in f32 from numpy weights, or the full one in
+    ``dtype`` from seed 0 (the same draw in either dtype)."""
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.interop import lm_params_from_arrays
     from repro_torch.models.model import build_model
 
-    if dtype == "float32":
+    if reduced:
         cfg = dataclasses.replace(get_reduced(spec["arch"]), decode_seq_shard=True)
         return lm_params_from_arrays(cfg, _lm_numpy_tree(cfg, 400), device=DEVICE)
-    cfg = dataclasses.replace(get_config(spec["arch"]), decode_seq_shard=True)
+    cfg = dataclasses.replace(get_config(spec["arch"]), decode_seq_shard=True, dtype=dtype)
     return build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(0))
 
 
 def _seq_shard_reduced(mesh) -> dict:
     """(d) on this rank: SEQ_SHARD_REDUCED's decode on the (1, 4) mesh."""
     spec = SEQ_SHARD_REDUCED
-    model = _seq_shard_model(spec, "float32")
+    model = _seq_shard_model(spec)
     toks = torch.from_numpy(np.random.default_rng(6).integers(
         0, model.cfg.vocab, (spec["rows"], spec["prompt"] + spec["steps"]))).to(DEVICE)
     run = _seq_shard_decode(model, mesh, toks, spec["prompt"], spec["steps"], spec["max_seq"])
@@ -3346,6 +3369,231 @@ def _seq_shard_reduced(mesh) -> dict:
         for k, v in c.items():
             out[f"seq.cache{i}.{k}"] = v.float().numpy() if v.is_floating_point() else v.numpy()
     return out
+
+
+def _tp_cut(spec: dict, dtype: str):
+    """TRAIN_TP's cut of ``spec["arch"]`` at full width in ``dtype``, its
+    TrainConfig and a model from seed 5 on the card."""
+    from repro_torch.configs import get_config, get_train_overrides
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optim
+    from repro_torch.train.loop import TrainConfig
+
+    cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=spec["layers"], dtype=dtype)
+    over = get_train_overrides(spec["arch"]) if spec["overrides"] else {}
+    tcfg = TrainConfig(opt=optim.AdamWConfig(**TRAIN_REDUCED_OPT), **over)
+    model = build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(5))
+    return cfg, tcfg, model
+
+
+def _tp_data(cfg, spec: dict, mesh=None, microbatches: int = 1):
+    from repro_torch.data.tokens import TokenDataset, TokenDatasetConfig
+
+    return TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                                           global_batch=spec["rows"], seed=8, structure=0.9),
+                        mesh=mesh, device=DEVICE, microbatches=microbatches)
+
+
+def _dropped_share(model, params, batch, tp=None) -> float:
+    """The share of (token, choice) pairs the MoE drops in a forward of
+    ``batch`` at ``params`` (with ``tp``, this rank's shards)."""
+    with torch.no_grad(), _RouteLog(batch["tokens"].shape[0]) as log_:
+        model.loss_fn(batch, params=params, tp=tp)
+    return log_.dropped_share(1)[0]
+
+
+def _tp_grads(model, params, batch, tp, data_group) -> list:
+    """The gradient of ``loss_fn`` at ``params`` over the data group's
+    batch (the mean of the ranks'), gathered whole over the model axis."""
+    import torch.distributed as dist
+
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.sharding.tp import gather_params
+
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = model.loss_fn(batch, params=leaves, tp=tp)
+    gs = torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=True, materialize_grads=True)
+    it = iter(gs)
+    grads = tree_map(lambda _: next(it).float(), leaves)
+    if data_group is not None and dist.get_world_size(data_group) > 1:
+        n = dist.get_world_size(data_group)
+        for g in tree_leaves(grads):
+            dist.all_reduce(g, group=data_group)
+            g /= n
+    return tree_leaves(gather_params(grads, tp))
+
+
+def _tp_run(spec: dict, rank: int) -> dict:
+    """(e) on this rank: ``spec``'s cut on its ("data", "model") mesh. In
+    f32, the first-step gradient and ``steps`` steps of make_train_step,
+    then, on rank 0 alone, the same on one rank over the whole batch,
+    compared there; in bf16, TRAIN_TP_BF16_STEPS timed steps, one more
+    under the profiler (host time in gloo's collectives against the step),
+    this process's peak memory, then on rank 0 the same steps on one rank
+    (s a step and peak, beside the mesh's)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.sharding.tp import gather_params, shard_params
+
+    tag = f"tp.{spec['arch']}"
+    nd, nm = spec["mesh"]
+    mesh = make_debug_mesh(n_data=nd, n_model=nm, device_type=DEVICE)
+    out = {}
+    cfg, tcfg, model = _tp_cut(spec, "float32")
+    ds = _tp_data(cfg, spec, mesh, tcfg.row_microbatches)
+    t0 = time.perf_counter()
+    run = _train_run(model, tcfg, ds, spec["steps"], mesh=mesh)
+    sh, losses = run["shardings"], run["loss"]
+    tp = sh["tp"]
+    gathered = tree_leaves(gather_params(run["params"], tp))
+    params0 = shard_params(_detached(model), tp)
+    grads = _tp_grads(model, params0, ds(0), tp, mesh.get_group("data"))
+    dropped = (_dropped_share(model, params0, _tp_data(cfg, spec)(0), tp)
+               if cfg.moe_experts else None)
+    out[f"{tag}.f32_mesh_s"] = np.asarray(time.perf_counter() - t0)
+    del model, run, params0
+    if rank != 0:
+        del gathered, grads
+    gc.collect()
+    torch.cuda.empty_cache()  # the waiting ranks' cached blocks, for rank 0's run
+    dist.barrier()
+    if rank == 0:  # one rank over the whole batch, the same cut and seed
+        model1 = _tp_cut(spec, "float32")[2]
+        ds1 = _tp_data(cfg, spec)
+        one = _train_run(model1, tcfg, ds1, spec["steps"], track=True)
+        g1 = _grad_of(model1, ds1(0))
+        row = {"loss_mesh": losses, "loss_one": one["loss"],
+               "loss_max_rel": max(abs(a / b - 1) for a, b in zip(losses, one["loss"])),
+               "grad_max_leaf_rel": max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                                        for a, b in zip(grads, g1))}
+        if cfg.moe_experts:
+            row["dropped_mesh"] = dropped
+            row["dropped_one"] = _dropped_share(model1, _detached(model1), ds1(0))
+        bound = 2 * TRAIN_REDUCED_OPT["lr"] * spec["steps"]
+        clear_max = dmax = 0.0
+        excused = entries = 0
+        for p, q, g in zip(gathered, tree_leaves(one["params"]), tree_leaves(one["gmin"])):
+            d = (p.float() - q.float()).abs()
+            clear = g > TRAIN_CLEAR
+            entries += d.numel()
+            excused += int((~clear).sum())
+            dmax = max(dmax, d.max().item())
+            if clear.any():
+                clear_max = max(clear_max, d[clear].max().item())
+        row.update(param_max_abs_diff=dmax, param_max_abs_diff_clear=clear_max,
+                   param_bound=bound, entries=entries, entries_excused=excused)
+        row["ok"] = bool(row["loss_max_rel"] <= TRAIN_TP_LOSS_RTOL
+                         and row["grad_max_leaf_rel"] <= TRAIN_TP_GRAD
+                         and clear_max <= TRAIN_PARAM_ATOL and dmax <= bound
+                         and (not cfg.moe_experts or row["dropped_mesh"] == row["dropped_one"]))
+        out[f"{tag}.f32"] = np.asarray(json.dumps(row))
+        del model1, one, g1, gathered, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    # bf16: timed steps, one profiled, this process's peak
+    cfg, tcfg, model = _tp_cut(spec, "bfloat16")
+    ds = _tp_data(cfg, spec, mesh, tcfg.row_microbatches)
+    torch.cuda.reset_peak_memory_stats()
+    run = _train_run(model, tcfg, ds, TRAIN_TP_BF16_STEPS, mesh=mesh)
+    params, opt, step_fn = run["params"], run["opt"], run["step_fn"]
+    batch = ds(TRAIN_TP_BF16_STEPS)
+    (params, opt, met), prof = _profiled_collectives(lambda: step_fn(params, opt, batch))
+    bf16 = {"s": run["s"], "loss": run["loss"] + [float(met["loss"])],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "profile": prof}
+    if spec.get("save"):
+        bf16["save"] = _tp_save(model, params, opt, run["shardings"], rank)
+    del model, run, params, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:  # the same cut on one rank over the whole batch, for what the mesh costs
+        model1 = _tp_cut(spec, "bfloat16")[2]
+        torch.cuda.reset_peak_memory_stats()
+        one = _train_run(model1, tcfg, _tp_data(cfg, spec), TRAIN_TP_BF16_STEPS)
+        bf16.update(one_rank_s=one["s"], one_rank_loss=one["loss"],
+                    one_rank_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model1, one
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out[f"{tag}.bf16"] = np.asarray(json.dumps(bf16))
+    return out
+
+
+def _tp_save(model, params, opt, sh, rank: int) -> dict:
+    """``save_train_state`` of the mesh's state into the checkout's
+    ``build/``: seconds, this process's device peak above what it held
+    before the save (no rank builds the whole state on its device), and on
+    rank 0 the file's size and whether its parameters are the mesh's
+    gathered ones bit for bit."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.manager import CheckpointManager, _flatten
+    from repro_torch.interop import reference_layout
+    from repro_torch.sharding.tp import gather_params
+    from repro_torch.train.loop import save_train_state
+
+    path = os.path.join(_scratch(), "tp_ckpt")
+    if rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    dist.barrier()
+    mgr = CheckpointManager(path)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    save_train_state(mgr, model, 1, params, opt, sh)
+    res = {"s": time.perf_counter() - t0,
+           "device_peak_above_state_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "state_gb_this_rank": base / 1e9}
+    gathered = gather_params(params, sh["tp"])
+    if rank == 0:
+        got, _ = mgr.restore(1)
+        want = _flatten({"params": reference_layout(model.cfg, gathered, torch.stack)})
+        res["file_gb"] = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+                             for f in fs) / 1e9
+        res["params_bits_equal"] = all(torch.equal(got[k], t.cpu()) for k, t in want)
+        shutil.rmtree(path, ignore_errors=True)
+    del gathered
+    dist.barrier()
+    return res
+
+
+def _profiled_collectives(fn) -> tuple:
+    """``fn()`` (one train step) under ``torch.profiler``: wall ms, the
+    host ms inside gloo's collectives (its ``gloo:*`` events: staging
+    through the host included) and their share of the wall, the device's
+    busy ms and idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    events = prof.key_averages()
+    busy_ms = sum(dev_us(e) for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    coll = [e for e in events if e.key.startswith("gloo:")]
+    coll_ms = sum(e.cpu_time_total for e in coll) / 1e3
+    by_op: dict = {}
+    for e in coll:  # an op's events come from more than one thread
+        by_op[e.key] = by_op.get(e.key, 0.0) + e.cpu_time_total / 1e3
+    return res, {"wall_ms": 1e3 * wall, "collective_host_ms": coll_ms,
+                 "collective_share": coll_ms / (1e3 * wall),
+                 "collectives": sum(e.count for e in coll),
+                 "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / (1e3 * wall),
+                 "by_op": by_op}
 
 
 def _train_four_ranks() -> list[dict]:
@@ -3393,7 +3641,7 @@ def _four_rank_checks() -> dict:
     r0 = ranks[0]
     row: dict = {"ranks": TRAIN_RANKS, "backend": "gloo", "seconds_with_spawn": spawn_s}
     # every rank's state but its error-feedback residual (its own by design)
-    state_keys = [k for k in r0 if not k.startswith("seq.") and ".err" not in k]
+    state_keys = [k for k in r0 if not k.startswith(("seq.", "tp.")) and ".err" not in k]
     row["every_rank_equals_rank0"] = all(
         all(np.array_equal(rk[k], r0[k]) for k in state_keys) for rk in ranks[1:])
 
@@ -3446,7 +3694,7 @@ def _four_rank_checks() -> dict:
     row["zero1_4ranks_vs_1rank"] = close(r0, "zero1.card", _flat_state("one", one), "one")
     # (d): the four ranks' sequence-sharded decode against the unsharded
     spec = SEQ_SHARD_REDUCED
-    m32 = _seq_shard_model(spec, "float32")
+    m32 = _seq_shard_model(spec)
     toks = torch.from_numpy(np.random.default_rng(6).integers(
         0, m32.cfg.vocab, (spec["rows"], spec["prompt"] + spec["steps"]))).to(DEVICE)
     ref = _seq_shard_decode(m32, None, toks, spec["prompt"], spec["steps"], spec["max_seq"])
@@ -3464,40 +3712,82 @@ def _four_rank_checks() -> dict:
                 ok &= np.allclose(full, want, **SEQ_SHARD_TOL)
     seq.update(cache_max_abs_diff=worst, tol=SEQ_SHARD_TOL, ok=bool(ok))
     row["seq_shard_4ranks_vs_unsharded"] = seq
+    row["tp"] = _tp_rows(ranks)
     log(f"[train] four gloo ranks on one card {json.dumps(row)}")
     if not (row["every_rank_equals_rank0"] and row["manual_dp_compress_card_vs_cpu"]["ok"]
-            and row["zero1_4ranks_vs_1rank"]["ok"] and seq["ok"]):
+            and row["zero1_4ranks_vs_1rank"]["ok"] and seq["ok"]
+            and all(r["f32"]["ok"] for r in row["tp"])
+            and all(r["save"]["params_bits_equal"] for r in row["tp"] if "save" in r)):
         raise AssertionError(f"train four ranks: {row}")
     return row
 
 
-def _seq_shard_full(mesh) -> dict:
-    """(d) gemma3-4b at full width and depth in bf16: SEQ_SHARD_FULL's
-    decode through the sequence-sharded path on the one-rank mesh against
-    the unsharded decode, within phase_lm's bf16 limits; ms a step of each."""
+def _tp_rows(ranks: list) -> list:
+    """(e)'s rows: each cut's f32 check (rank 0's), and its bf16 seconds a
+    step (the median after the first), peak GB and profiled collective
+    share on every rank; ``[train tp]`` lines."""
+    rows = []
+    for spec in TRAIN_TP:
+        tag = f"tp.{spec['arch']}"
+        f32 = json.loads(str(ranks[0][f"{tag}.f32"]))
+        bf16 = [json.loads(str(r[f"{tag}.bf16"])) for r in ranks]
+        steady = [float(np.median(b["s"][1:])) for b in bf16]
+        row = {"arch": spec["arch"], "layers": spec["layers"], "mesh": list(spec["mesh"]),
+               "tokens": [spec["rows"], spec["seq"]], "card": RECORD.get("nvidia_smi"),
+               "backend": "gloo, four ranks on one card",
+               "f32": f32, "f32_mesh_s": float(ranks[0][f"{tag}.f32_mesh_s"]),
+               "bf16_s_per_step": max(steady), "bf16_s_per_step_by_rank": steady,
+               "bf16_loss": bf16[0]["loss"], "peak_gb_by_rank": [b["peak_gb"] for b in bf16],
+               "one_rank_bf16_s_per_step": float(np.median(bf16[0]["one_rank_s"][1:])),
+               "one_rank_peak_gb": bf16[0]["one_rank_peak_gb"],
+               "collective_share_by_rank": [b["profile"]["collective_share"] for b in bf16],
+               "profile_rank0": bf16[0]["profile"]}
+        if spec.get("save"):
+            row["save"] = {**bf16[0]["save"], "device_peak_above_state_gb_by_rank": [
+                b["save"]["device_peak_above_state_gb"] for b in bf16]}
+        log(f"[train tp] {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def _seq_shard_full(mesh) -> list:
+    """(d) gemma3-4b at full width and depth: SEQ_SHARD_FULL's decode
+    through the sequence-sharded path on the one-rank mesh against the
+    unsharded decode, in bf16 within phase_lm's bf16 limits and in f32 (the
+    same draw) within SEQ_SHARD_F32 in norm a position, which tells bf16
+    rounding from a fault of the two-level softmax combine; ms a step of
+    each."""
     spec = SEQ_SHARD_FULL
-    model = _seq_shard_model(spec, "bfloat16")
-    toks = torch.from_numpy(np.random.default_rng(7).integers(
-        0, model.cfg.vocab, (spec["rows"], spec["prompt"] + spec["steps"]))).to(DEVICE)
-    n = spec["prompt"] + spec["steps"]
-    runs = {}
-    for tag, m in (("warm-up", mesh), ("unsharded", None), ("seq_sharded", mesh)):
-        runs[tag] = _seq_shard_decode(model, m, toks, spec["prompt"], spec["steps"], n)
-    got, want = runs["seq_sharded"]["logits"], runs["unsharded"]["logits"]
-    diff = (got - want).abs()
-    norm = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
-    row = {"arch": spec["arch"], "rows": spec["rows"], "prompt": spec["prompt"],
-           "decode_steps": spec["steps"], "max_abs_diff": diff.max().item(),
-           "max_norm_rel": norm, "ms_per_step_seq_sharded": runs["seq_sharded"]["ms"],
-           "ms_per_step_unsharded": runs["unsharded"]["ms"],
-           "ok": bool((diff <= LM_BF16_ATOL + LM_BF16_RTOL * want.abs()).all()
-                      and norm <= LM_BF16_NORM)}
-    del model, runs
-    torch.cuda.empty_cache()
-    log(f"[train] seq-sharded decode, one NCCL rank {json.dumps(row)}")
-    if not row["ok"]:
-        raise AssertionError(f"seq-sharded decode against unsharded: {row}")
-    return row
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        model = _seq_shard_model(spec, dtype, reduced=False)
+        toks = torch.from_numpy(np.random.default_rng(7).integers(
+            0, model.cfg.vocab, (spec["rows"], spec["prompt"] + spec["steps"]))).to(DEVICE)
+        n = spec["prompt"] + spec["steps"]
+        runs = {}
+        for tag, m in (("warm-up", mesh), ("unsharded", None), ("seq_sharded", mesh)):
+            runs[tag] = _seq_shard_decode(model, m, toks, spec["prompt"], spec["steps"], n)
+        got, want = runs["seq_sharded"]["logits"], runs["unsharded"]["logits"]
+        diff = (got - want).abs()
+        norm = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+        row = {"arch": spec["arch"], "dtype": dtype, "rows": spec["rows"],
+               "prompt": spec["prompt"], "decode_steps": spec["steps"],
+               "max_abs_diff": diff.max().item(), "max_norm_rel": norm,
+               "ms_per_step_seq_sharded": runs["seq_sharded"]["ms"],
+               "ms_per_step_unsharded": runs["unsharded"]["ms"]}
+        if dtype == "bfloat16":
+            row["ok"] = bool((diff <= LM_BF16_ATOL + LM_BF16_RTOL * want.abs()).all()
+                             and norm <= LM_BF16_NORM)
+        else:
+            row.update(limit=SEQ_SHARD_F32, ok=norm <= SEQ_SHARD_F32)
+        del model, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[train] seq-sharded decode, one NCCL rank {json.dumps(row)}")
+        if not row["ok"]:
+            raise AssertionError(f"seq-sharded decode against unsharded: {row}")
+        rows.append(row)
+    return rows
 
 
 def phase_train() -> None:
@@ -3514,7 +3804,12 @@ def phase_train() -> None:
         against the CPU, zero1 against one rank (`_four_rank_checks`).
     (d) The sequence-sharded decode: four gloo ranks at reduced size
         against the unsharded decode, and gemma3-4b at full width on the
-        one NCCL rank (`_seq_shard_full`).
+        one NCCL rank in bf16 and in f32 (`_seq_shard_full`).
+    (e) Tensor and expert parallelism on the same four gloo ranks:
+        olmo-1b and qwen2-moe-a2.7b at full width, cut in depth, against
+        one rank in f32, then timed in bf16 (`_tp_run`, `_tp_rows`); the
+        olmo cut's bf16 state checkpointed, its parameters read back bit
+        for bit against the mesh's (`_tp_save`).
     """
     import datetime
     import tempfile

@@ -96,7 +96,8 @@ def main():
     ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                                          seed=0, structure=0.9),
                       mesh=mesh, prefix_len=cfg.prefix_len, d_model=cfg.d_model,
-                      frames=cfg.arch_type == "encdec", device=args.device)
+                      frames=cfg.arch_type == "encdec", device=args.device,
+                      microbatches=tcfg.row_microbatches)
 
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="lm_ckpt_")
     mgr = CheckpointManager(ckpt_dir, keep_last=2)

@@ -46,8 +46,8 @@ def get_train_overrides(name: str) -> dict:
 
     The reference's values, set for its training runs: ZeRO-1
     optimizer-state sharding, ZeRO-2 gradient-accumulator sharding, and
-    enough microbatches that saved activations stay bounded. The port has
-    no trainer yet; they are carried as data.
+    enough microbatches that saved activations stay bounded; the fields of
+    ``train.loop.TrainConfig``.
     """
     mod = _mod(name)
     return getattr(mod, "TRAIN_OVERRIDES", {})

@@ -9,7 +9,15 @@ successor of token t, else a uniform jump) so losses are learnable.
 Batches are tensors on an explicit device (the card unless the caller asks
 for the CPU). With a mesh, each data-parallel rank takes its contiguous
 slice of the global batch: rank r of R data ranks (the mesh's "pod" and
-"data" axes, pod major) gets rows [r * B / R, (r + 1) * B / R).
+"data" axes, pod major) gets rows [r * B / R, (r + 1) * B / R). With
+``microbatches`` nm > 1 it takes its slice of each of the nm contiguous
+microbatches of the global batch instead, as the reference's step splits
+the global batch (``reshape(nm, B // nm)``) before it shards each
+microbatch over the data ranks: the train step's contiguous chunks of
+the rank's rows are then its parts of the reference's microbatches (what
+a statistic over a microbatch, the MoE's aux loss, needs). Each batch
+says which layout it has (:class:`TokenBatch`), and a data-parallel train
+step refuses a batch laid out for another count than its own.
 """
 from __future__ import annotations
 
@@ -43,12 +51,20 @@ def _data_rank(mesh) -> tuple[int, int]:
     return rank, count
 
 
+class TokenBatch(dict):
+    """A batch dict that says how its rows are laid out: this rank's parts
+    of ``microbatches`` contiguous microbatches of the global batch."""
+
+    microbatches: int = 1
+
+
 class TokenDataset:
     """dataset(step) -> batch dict of tensors on ``device``: ``tokens`` and
     ``labels`` (int32), ``prefix_embeds`` or ``frames`` (f32) when asked."""
 
     def __init__(self, cfg: TokenDatasetConfig, mesh=None, prefix_len: int = 0,
-                 d_model: int = 0, frames: bool = False, device="cuda"):
+                 d_model: int = 0, frames: bool = False, device="cuda",
+                 microbatches: int = 1):
         self.cfg = cfg
         self.mesh = mesh
         self.prefix_len = prefix_len
@@ -59,11 +75,17 @@ class TokenDataset:
             raise RuntimeError("device='cuda' was asked for but no CUDA device is "
                                "available; pass device='cpu'")
         rank, count = _data_rank(mesh)
-        if cfg.global_batch % count:
+        if cfg.global_batch % (count * microbatches):
             raise ValueError(f"global batch {cfg.global_batch} does not split over "
-                             f"{count} data ranks")
+                             f"{count} data ranks and {microbatches} microbatches")
         per = cfg.global_batch // count
         self.rows = slice(rank * per, (rank + 1) * per)
+        self.microbatches = microbatches
+        if microbatches > 1 and count > 1:
+            mb, per_mb = cfg.global_batch // microbatches, per // microbatches
+            self.rows = np.concatenate([np.arange(i * mb + rank * per_mb,
+                                                  i * mb + (rank + 1) * per_mb)
+                                        for i in range(microbatches)])
         # a fixed "grammar": each token deterministically suggests a successor
         rng = np.random.default_rng(cfg.seed + 1234)
         self.successor = rng.integers(0, cfg.vocab, size=cfg.vocab)
@@ -98,6 +120,8 @@ class TokenDataset:
             ).astype(np.float32)
         return batch
 
-    def __call__(self, step: int) -> dict:
-        return {k: torch.from_numpy(np.ascontiguousarray(v[self.rows])).to(self.device)
-                for k, v in self.arrays(step).items()}
+    def __call__(self, step: int) -> TokenBatch:
+        batch = TokenBatch({k: torch.from_numpy(np.ascontiguousarray(v[self.rows])).to(self.device)
+                            for k, v in self.arrays(step).items()})
+        batch.microbatches = self.microbatches
+        return batch

@@ -70,10 +70,60 @@ def project_qkv(cfg: AttnConfig, params, x: torch.Tensor, positions: torch.Tenso
     return q, k, v
 
 
-def output_proj(cfg: AttnConfig, params, attn_out: torch.Tensor) -> torch.Tensor:
+def output_proj(cfg: AttnConfig, params, attn_out: torch.Tensor, tp=None,
+                split: Optional[str] = None) -> torch.Tensor:
+    """The output projection; under tensor parallelism (``split`` from
+    :func:`tp_local`) row-parallel over ``heads_flat``, left through the
+    model group: on this rank's heads (``"heads"``), or on its slice of
+    the replicated heads' output, which enters first (``"out"``)."""
     b, s = attn_out.shape[:2]
     flat = attn_out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return torch.matmul(flat, params["wo"])
+    if split is None:
+        return torch.matmul(flat, params["wo"])
+    if split == "out":
+        f = params["wo"].shape[0]
+        flat = tp.enter(flat)[..., tp.offset(f):tp.offset(f) + f]
+    return tp.leave(torch.matmul(flat, params["wo"]))
+
+
+def tp_local(cfg: AttnConfig, params, tp):
+    """Tensor parallelism over the model axis of ``tp``
+    (``sharding.tp.TPContext``), read from the weights' local shapes:
+    (this rank's config, the weights it uses, ``split``).
+
+    * ``split="heads"``: ``heads`` is split, so ``wq`` is column-parallel
+      and the input must enter the group. Query head ``q0 + i`` reads KV
+      head ``(q0 + i) // G`` (``G = n_heads // n_kv``): with ``kv_heads``
+      split too, this rank's own KV heads; with ``kv_heads`` replicated,
+      the slice of ``wk``/``wv`` its query heads read, whose gradient is a
+      partial sum (the weights enter the group before the slice).
+    * ``split="out"``: ``heads`` replicated, ``heads_flat`` split: the
+      attention runs whole and :func:`output_proj` is row-parallel.
+    * ``split=None``: nothing split, today's ops.
+    """
+    h_loc = params["wq"].shape[1]
+    if h_loc < cfg.n_heads:
+        g = cfg.n_heads // cfg.n_kv
+        q0 = tp.offset(h_loc)
+        wk, wv = params["wk"], params["wv"]
+        n_kv = wk.shape[1]
+        if n_kv == cfg.n_kv:
+            if h_loc % g == 0:
+                n_kv = h_loc // g
+            elif g % h_loc == 0:
+                n_kv = 1
+            else:
+                raise NotImplementedError(
+                    f"attn.wk/wv: {h_loc} query heads a rank do not map onto whole groups "
+                    f"of {g} over {cfg.n_kv} replicated KV heads")
+            kv0 = q0 // g
+            wk = tp.enter(wk)[:, kv0:kv0 + n_kv]
+            wv = tp.enter(wv)[:, kv0:kv0 + n_kv]
+        local = dataclasses.replace(cfg, n_heads=h_loc, n_kv=n_kv)
+        return local, {"wq": params["wq"], "wk": wk, "wv": wv, "wo": params["wo"]}, "heads"
+    if params["wo"].shape[0] < cfg.n_heads * cfg.head_dim:
+        return cfg, params, "out"
+    return cfg, params, None
 
 
 def _scaled_q(cfg: AttnConfig, q: torch.Tensor) -> torch.Tensor:

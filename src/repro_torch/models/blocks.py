@@ -184,9 +184,33 @@ def _append_kv_cache(cache: dict, k1, v1, pos) -> dict:
 
 # --------------------------------------------------------------------- apply
 
+def attend(cfg, acfg: A.AttnConfig, params, h: torch.Tensor, positions: torch.Tensor,
+           tp=None):
+    """The attention sub-layer over a full sequence, projected back to the
+    model width: (out, k, v). The attention is materialized, KV-chunked or
+    doubly chunked by the sequence's length against ``cfg``'s chunks. With
+    ``tp`` (``sharding.tp.TPContext``), on this rank's shards
+    (``attention.tp_local``), ``out`` summed over the model group and
+    ``k``/``v`` this rank's heads."""
+    split = None
+    if tp is not None:
+        acfg, params, split = A.tp_local(acfg, params, tp)
+        if split == "heads":
+            h = tp.enter(h)
+    q, k, v = A.project_qkv(acfg, params, h, positions[None, :])
+    if cfg.q_chunk and h.shape[1] > cfg.q_chunk:
+        out = A.attention_chunked_q(acfg, q, k, v, positions, positions, cfg.q_chunk)
+    elif h.shape[1] > cfg.kv_chunk:
+        out = A.attention_chunked(acfg, q, k, v, positions, positions)
+    else:
+        out = A.attention_full(acfg, q, k, v, positions, positions)
+    return A.output_proj(acfg, params, out, tp, split), k, v
+
+
 def block_apply(
     kind: str, cfg, params, x: torch.Tensor, positions: torch.Tensor,
-    cache: Optional[dict] = None, decode: bool = False, mesh=None,
+    cache: Optional[dict] = None, decode: bool = False, mesh=None, tp=None,
+    batch_group=None,
 ):
     """Returns (y, new_cache, aux_loss).
 
@@ -194,9 +218,18 @@ def block_apply(
     decode=False (the cache is filled). Decode: cache carried, decode=True,
     x is (B, 1, D) and positions is (B,) absolute position of the new token.
     Only ``attn+moe`` has an auxiliary loss; the other kinds give 0.0.
+    ``tp`` (``sharding.tp.TPContext``): the forward with this rank's
+    shards of the attention, MLP and MoE weights (the training path, an
+    attention kind, no cache); the norms and the residual stream stay
+    replicated. ``batch_group``: the MoE's aux loss is over it (a
+    data-parallel step's batch group). ``mesh`` serves only the
+    sequence-sharded decode.
     """
     aux = 0.0
     new_cache = cache
+    if tp is not None and (kind not in ATTN_KINDS or cache is not None or decode):
+        raise NotImplementedError(f"tensor parallelism covers the forward of the attention "
+                                  f"kinds without a cache, not {kind!r}")
 
     if kind in ATTN_KINDS:
         window = cfg.window if kind == "local+mlp" else None
@@ -222,24 +255,20 @@ def block_apply(
                 kd, vd = _cache_kv_views(cfg, new_cache)
                 attn_out = A.decode_attention(acfg, q, kd, vd, positions,
                                               new_cache["slot_pos"])
+            attn_out = A.output_proj(acfg, params["attn"], attn_out)
         else:
-            q, k, v = A.project_qkv(acfg, params["attn"], h, positions[None, :])
-            if cfg.q_chunk and x.shape[1] > cfg.q_chunk:
-                attn_out = A.attention_chunked_q(acfg, q, k, v, positions, positions,
-                                                 cfg.q_chunk)
-            elif x.shape[1] > cfg.kv_chunk:
-                attn_out = A.attention_chunked(acfg, q, k, v, positions, positions)
-            else:
-                attn_out = A.attention_full(acfg, q, k, v, positions, positions)
+            attn_out, k, v = attend(cfg, acfg, params["attn"], h, positions, tp)
             if cache is not None:
                 new_cache = _fill_kv_cache(cache, k, v, positions)
-        # named for the "save_tp" remat policy, which keeps these two
-        x = x + checkpoint_name(A.output_proj(acfg, params["attn"], attn_out), "tp_attn_out")
+        # named for the "save_tp" remat policy, which keeps these two (after
+        # the model group's sum, under tensor parallelism)
+        x = x + checkpoint_name(attn_out, "tp_attn_out")
         h = apply_norm(cfg.norm_kind, params["norm2"], x)
         if kind == "attn+moe":
-            y, aux = M.apply_moe(_moe_cfg(cfg), params["moe"], h)
+            y, aux = M.apply_moe(_moe_cfg(cfg), params["moe"], h, tp=tp,
+                                 batch_group=batch_group)
         else:
-            y = apply_mlp(_mlp_cfg(cfg), params["mlp"], h)
+            y = apply_mlp(_mlp_cfg(cfg), params["mlp"], h, tp=tp)
         return x + checkpoint_name(y, "tp_mlp_out"), new_cache, aux
 
     if kind == "rglru+mlp":

@@ -147,7 +147,13 @@ def init_mlp(generator, cfg: MLPConfig, dtype, device):
     return params, specs
 
 
-def apply_mlp(cfg: MLPConfig, params, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: MLPConfig, params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """With ``tp`` (``sharding.tp.TPContext``) and ``ffn`` split over the
+    model axis: ``wi``/``wg`` column-parallel, ``wo`` row-parallel, the
+    partial sums left through the group."""
+    split = tp is not None and params["wi"].shape[1] < cfg.d_ff
+    if split:
+        x = tp.enter(x)
     h = torch.matmul(x, params["wi"])
     if cfg.kind == "swiglu":
         h = F.silu(torch.matmul(x, params["wg"])) * h
@@ -158,7 +164,8 @@ def apply_mlp(cfg: MLPConfig, params, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(cfg.kind)
-    return torch.matmul(h, params["wo"])
+    y = torch.matmul(h, params["wo"])
+    return tp.leave(y) if split else y
 
 
 # ------------------------------------------------------------------- utility

@@ -219,12 +219,16 @@ class Model(nn.Module):
         """The encoder-decoder's encoder over stub frame embeddings."""
         return E.encode(self.cfg, self.params, frames)
 
-    def loss_fn(self, batch, mesh=None, params: Optional[dict] = None):
+    def loss_fn(self, batch, mesh=None, params: Optional[dict] = None, tp=None,
+                batch_group=None):
         """(loss, {"ce", "aux"}) at the model's parameters, or at ``params``
         (a tree of the same layout: a train step's leaves that require
-        grad)."""
+        grad; with ``tp``, a ``sharding.tp.TPContext``, this rank's shards
+        of them over the model axis). ``batch_group``: the MoE's aux loss
+        is over the global batch of that data-parallel group."""
+        kw = {k: v for k, v in (("tp", tp), ("batch_group", batch_group)) if v is not None}
         return self._mod.loss_fn(self.cfg, self.params if params is None else params, batch,
-                                 mesh=mesh)
+                                 mesh=mesh, **kw)
 
     @torch.inference_mode()
     def prefill(self, *args, **kw):

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import MLPConfig, apply_mlp, init_linear, init_mlp, _normal
+from repro_torch.sharding.tp import batch_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,22 +105,43 @@ def route(cfg: MoEConfig, params, x: torch.Tensor) -> dict:
             "pos": pos, "keep": keep, "onehot": onehot, "capacity": cap}
 
 
-def apply_moe(cfg: MoEConfig, params, x: torch.Tensor):
-    """x: (B, S, D) -> (y, aux_loss)."""
+def apply_moe(cfg: MoEConfig, params, x: torch.Tensor, tp=None, batch_group=None):
+    """x: (B, S, D) -> (y, aux_loss).
+
+    With ``tp`` (``sharding.tp.TPContext``) and the experts split over the
+    model axis (``expert``, or ``ffn`` where ``expert`` does not divide),
+    the routing, the capacity and the aux loss are computed whole on every
+    rank; each rank runs its own experts ``[e0, e1)`` of ``e_padded`` on
+    its slice of the dispatch and combine tensors. The routed output and a
+    split shared expert are partial sums, added and left through the group
+    once; a replicated part is added after. ``batch_group``: the aux loss's
+    statistics are averaged over it (a data-parallel step's batch group)."""
     b_orig, s_orig, d = x.shape
     x = x.reshape(*group_shape(cfg, b_orig, s_orig), d)
     r = route(cfg, params, x)
     onehot, keep = r["onehot"], r["keep"]
+    gate_vals, x_in = r["gate_vals"], x
+    e_loc = params["wi"].shape[0]
+    routed_split = tp is not None and (e_loc < cfg.e_padded
+                                       or params["wi"].shape[2] < cfg.d_expert)
+    shared_split = (tp is not None and cfg.n_shared > 0
+                    and params["shared"]["wi"].shape[1] < cfg.shared_mlp().d_ff)
+    if routed_split:
+        e0 = tp.offset(e_loc) if e_loc < cfg.e_padded else 0
+        onehot = onehot[..., e0:e0 + e_loc]
+        gate_vals = tp.enter(gate_vals)  # only this rank's experts' combine reads it
+    if routed_split or shared_split:
+        x_in = tp.enter(x)
 
     # dispatch/combine tensors (b, s, e, c) in the model dtype: each
     # (token, expert) pair has at most one choice, so the sums over k are exact
     slots = torch.arange(r["capacity"], device=x.device)
     pos_onehot = (r["pos"][..., None] == slots).float() * keep[..., None]
     dispatch = torch.einsum("bske,bskc->bsec", onehot, pos_onehot).to(x.dtype)
-    combine = torch.einsum("bske,bskc->bsec", r["gate_vals"][..., None] * onehot,
+    combine = torch.einsum("bske,bskc->bsec", gate_vals[..., None] * onehot,
                            pos_onehot).to(x.dtype)
 
-    xe = torch.einsum("bsec,bsd->becd", dispatch, x)              # (b, e, c, d)
+    xe = torch.einsum("bsec,bsd->becd", dispatch, x_in if routed_split else x)  # (b, e, c, d)
     gb, e, c, _ = xe.shape
     xe_e = xe.permute(1, 0, 2, 3).reshape(e, gb * c, d)           # experts batched
     h = torch.bmm(xe_e, params["wi"])
@@ -131,12 +153,29 @@ def apply_moe(cfg: MoEConfig, params, x: torch.Tensor):
     ye = torch.bmm(h, params["wo"]).reshape(e, gb, c, d).permute(1, 0, 2, 3)
     y = torch.einsum("bsec,becd->bsd", combine, ye)
 
+    # the partial sums (the routed experts', a split shared expert's, its
+    # gate entering the group) added and left once, the replicated parts after
+    partial, whole = [], []
+    (partial if routed_split else whole).append(y)
     if cfg.n_shared:
         gate = torch.sigmoid(torch.matmul(x, params["shared_gate"]).float()).to(x.dtype)
-        y = y + gate * apply_mlp(cfg.shared_mlp(), params["shared"], x)
+        if shared_split:
+            partial.append(tp.enter(gate) * apply_mlp(cfg.shared_mlp(), params["shared"], x_in))
+        else:
+            whole.append(gate * apply_mlp(cfg.shared_mlp(), params["shared"], x))
+    out = tp.leave(sum(partial[1:], partial[0])) if partial else None
+    for t in whole:
+        out = t if out is None else out + t
+    return out.reshape(b_orig, s_orig, d), _aux_loss(cfg, r, batch_group)
 
-    # Switch-style load-balance aux loss over the *real* experts
-    me = onehot.sum(dim=2).mean(dim=(0, 1))[:cfg.n_experts]      # fraction routed
+
+def _aux_loss(cfg: MoEConfig, r: dict, batch_group=None) -> torch.Tensor:
+    """The Switch-style load-balance aux loss over the *real* experts; with
+    ``batch_group``, its statistics averaged over the global batch as the
+    reference's are (the same value on every rank). It is the same on
+    every model rank and is not summed over the model group."""
+    me = r["onehot"].sum(dim=2).mean(dim=(0, 1))[:cfg.n_experts]  # fraction routed
     pe = r["probs"].mean(dim=(0, 1))[:cfg.n_experts]              # mean prob
-    aux = cfg.n_experts * torch.sum(me * pe) * cfg.aux_weight
-    return y.reshape(b_orig, s_orig, d), aux
+    if batch_group is not None:
+        me, pe = batch_mean(me, batch_group), batch_mean(pe, batch_group)
+    return cfg.n_experts * torch.sum(me * pe) * cfg.aux_weight

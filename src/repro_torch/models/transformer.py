@@ -56,7 +56,8 @@ def init_params(cfg, generator: Optional[torch.Generator] = None, device=None):
 
 # ---------------------------------------------------------------------------
 
-def _run_layers(cfg, params, x, positions, caches=None, decode=False, mesh=None):
+def _run_layers(cfg, params, x, positions, caches=None, decode=False, mesh=None, tp=None,
+                batch_group=None):
     """Shared depth loop. caches: None | list of per-layer dicts.
 
     Each full cycle of the pattern runs as one body, under ``cfg.remat``
@@ -72,7 +73,8 @@ def _run_layers(cfg, params, x, positions, caches=None, decode=False, mesh=None)
         new = []
         for kind, p, cache in zip(kinds, ps, cs):
             x, nc, a = B.block_apply(kind, cfg, p, x, positions, cache=cache,
-                                     decode=decode, mesh=mesh)
+                                     decode=decode, mesh=mesh, tp=tp,
+                                     batch_group=batch_group)
             aux = aux + a
             new.append(nc)
         return x, aux, new
@@ -88,48 +90,93 @@ def _run_layers(cfg, params, x, positions, caches=None, decode=False, mesh=None)
     return x, (new_caches if caches is not None else None), aux
 
 
-def embed_tokens(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+def _vocab_split(cfg, params, tp) -> bool:
+    return tp is not None and params["emb"].shape[0] < cfg.vocab
+
+
+def embed_tokens(cfg, params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """With ``tp`` and ``vocab`` split over the model axis, each rank looks
+    up the tokens in its vocab range, zeroes the others and the group sums
+    the rows (one term each: exact)."""
     dtype = cfg.torch_dtype
-    x = params["emb"][tokens].to(dtype)
+    if _vocab_split(cfg, params, tp):
+        emb = params["emb"]
+        local = tokens - tp.offset(emb.shape[0])
+        mine = (local >= 0) & (local < emb.shape[0])
+        rows = emb[torch.where(mine, local, 0)].to(dtype)
+        x = tp.leave(torch.where(mine[..., None], rows, torch.zeros((), dtype=dtype,
+                                                                    device=rows.device)))
+    else:
+        x = params["emb"][tokens].to(dtype)
     return x * dtype_scalar(math.sqrt(cfg.d_model), dtype)
 
 
-def logits_from(cfg, params, x: torch.Tensor) -> torch.Tensor:
+def logits_from(cfg, params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The tied logits (with ``vocab`` split, this rank's range of them)."""
+    if _vocab_split(cfg, params, tp):
+        x = tp.enter(x)
     # the product in the model dtype, then f32, as the reference rounds it
     return torch.matmul(x, params["emb"].t()).float()
 
 
 def forward(cfg, params, tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None,
-            caches=None, mesh=None, logits_positions: Optional[str] = None):
+            caches=None, mesh=None, logits_positions: Optional[str] = None, tp=None,
+            batch_group=None):
     """Full-sequence forward. Returns (logits, new_caches, aux).
 
     logits_positions="last" computes logits for the final position only:
     the prefill path, where the (B, S, V) logit tensor would otherwise be
-    the single largest compute and traffic term.
+    the single largest compute and traffic term. ``tp``
+    (``sharding.tp.TPContext``): the training forward on this rank's
+    shards (``params``), the logits this rank's vocab range where
+    ``vocab`` is split. ``batch_group``: a data-parallel step's batch
+    group, over which the MoE averages its aux loss's statistics.
     """
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, tp)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, new_caches, aux = _run_layers(cfg, params, x, positions, caches=caches, mesh=mesh)
+    x, new_caches, aux = _run_layers(cfg, params, x, positions, caches=caches, mesh=mesh, tp=tp,
+                                     batch_group=batch_group)
     if logits_positions == "last":
         x = x[:, -1:]
     x = apply_norm(cfg.norm_kind, params["final_norm"], x)
-    return logits_from(cfg, params, x), new_caches, aux
+    return logits_from(cfg, params, x, tp), new_caches, aux
 
 
-def loss_fn(cfg, params, batch: dict, mesh=None):
-    """Next-token cross entropy (+ MoE aux). batch: tokens, labels[, prefix]."""
+def _vocab_parallel_ll(logits, idx, tp) -> torch.Tensor:
+    """log p(idx) from this rank's range of the logits: the maximum over
+    the group (MAX), the sum of exponentials and the target's logit, from
+    the rank that holds it (two sums through the group)."""
+    v_loc = logits.shape[-1]
+    shifted = logits - tp.all_max(logits.amax(dim=-1))[..., None]
+    sumexp = tp.leave(torch.exp(shifted).sum(dim=-1))
+    local = idx - tp.offset(v_loc)
+    mine = (local >= 0) & (local < v_loc)
+    picked = torch.gather(shifted, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    return tp.leave(torch.where(mine, picked, 0.0)) - torch.log(sumexp)
+
+
+def loss_fn(cfg, params, batch: dict, mesh=None, tp=None, batch_group=None):
+    """Next-token cross entropy (+ MoE aux). batch: tokens, labels[, prefix].
+    With ``tp``, the cross entropy over the whole vocab from each rank's
+    range of the logits (:func:`_vocab_parallel_ll`) where it is split."""
     logits, _, aux = forward(
-        cfg, params, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"), mesh=mesh
+        cfg, params, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"), mesh=mesh,
+        tp=tp, batch_group=batch_group,
     )
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:  # vision prefix: score text positions only
         logits = logits[:, -labels.shape[1]:]
-    logp = F.log_softmax(logits, dim=-1)
-    # negative labels index from the end, as the reference's take_along_axis
-    idx = torch.where(labels < 0, labels + logits.shape[-1], labels).long()
-    ll = torch.gather(logp, -1, idx[..., None])[..., 0]
+    # negative labels index from the end (of the whole vocab), as the
+    # reference's take_along_axis
+    if _vocab_split(cfg, params, tp):
+        idx = torch.where(labels < 0, labels + cfg.vocab, labels).long()
+        ll = _vocab_parallel_ll(logits, idx, tp)
+    else:
+        logp = F.log_softmax(logits, dim=-1)
+        idx = torch.where(labels < 0, labels + logits.shape[-1], labels).long()
+        ll = torch.gather(logp, -1, idx[..., None])[..., 0]
     mask = (labels >= 0).float()
     ce = -torch.sum(ll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return ce + aux, {"ce": ce, "aux": aux}

@@ -1,0 +1,163 @@
+"""Tensor and expert parallelism over the mesh's "model" axis.
+
+The reference lets XLA derive the model axis's collectives from the
+parameters' shardings; the port writes them out. A :class:`TPContext`
+holds the "model" group of a mesh, this rank's index in it and its size,
+and, for each parameter of the port's tree, the dimension that the rules
+split over "model" (None: replicated), read from ``build_shardings``'
+specs. Each rank holds a contiguous ``1/size`` of a split dimension.
+
+The two conjugate operators of the Megatron layout, as autograd functions:
+
+* :func:`enter`: identity forward, all-reduce (sum) backward. It goes
+  where a tensor that is the same on every model rank is consumed by a
+  computation local to the rank (a column-parallel product, this rank's
+  experts, a slice of a replicated weight): each rank's gradient of it is
+  a partial sum.
+* :func:`leave`: all-reduce (sum) forward, identity backward. It goes
+  after a row-parallel product, or any sum of per-rank partials: every
+  rank then holds the same tensor, and differentiates its own replica of
+  the loss.
+
+The residual stream, the norms and every replicated weight's gradient are
+then the same on every model rank. The models take the context as a
+``tp=`` keyword (None: a model axis of one rank, today's ops in today's
+order) and read which dimensions are split from their parameters' local
+shapes.
+
+:func:`batch_mean` is the same pair over a data-parallel step's batch
+group: the reference computes the MoE's load-balance loss over the global
+batch, so the MoE averages its routing statistics over that group.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.models.layers import tree_map
+from repro_torch.sharding.rules import axis_sizes
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def enter(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, all-reduce (sum) over ``group`` backward."""
+    return _Enter.apply(x, group)
+
+
+def leave(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce (sum) over ``group`` forward, identity backward."""
+    return _Leave.apply(x, group)
+
+
+def batch_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``x`` over ``group``, differentiable: every rank's loss
+    holds the global mean, and each rank's gradient of it is summed over
+    the group, so the data-parallel mean of the gradients is the gradient
+    of the global statistic."""
+    return enter(leave(x, group), group) / dist.get_world_size(group)
+
+
+def split_dim(spec: tuple) -> Optional[int]:
+    """The dimension a spec splits over "model" (None: none)."""
+    for i, e in enumerate(spec):
+        if e == "model" or (isinstance(e, tuple) and "model" in e):
+            return i
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class TPContext:
+    """The "model" group (``size`` > 1 ranks, this one ``rank``) and
+    ``dims``: per parameter of the port's tree, the local dimension split
+    over it."""
+
+    group: Any
+    rank: int
+    size: int
+    dims: Any
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return enter(x, self.group)
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        return leave(x, self.group)
+
+    def offset(self, local: int) -> int:
+        """The first global index of this rank's ``local`` entries of a
+        split dimension."""
+        return self.rank * local
+
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The element-wise maximum over the group (no gradient)."""
+        x = x.detach().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
+        return x
+
+
+def tp_context(mesh, port_dims) -> Optional[TPContext]:
+    """The context of ``mesh``'s "model" axis (``port_dims``: per parameter
+    of the port's tree, the dimension split over "model"); None where that
+    axis has one rank or there is no mesh."""
+    size = axis_sizes(mesh).get("model", 1)
+    if size == 1:
+        return None
+    return TPContext(mesh.get_group("model"), mesh.get_local_rank("model"), size, port_dims)
+
+
+def shard_params(tree, tp: Optional[TPContext]):
+    """This rank's shards of a full tree of the port's layout (fresh
+    tensors); the tree itself when ``tp`` is None. Leaves that are None (a
+    layer that a ZeRO rank does not own) stay None."""
+    if tp is None:
+        return tree
+
+    def one(t, d):
+        if t is None or d is None:
+            return t
+        n = t.shape[d] // tp.size
+        return t.narrow(d, tp.rank * n, n).clone()
+
+    return tree_map(one, tree, tp.dims)
+
+
+def gather_params(tree, tp: Optional[TPContext]):
+    """The full tree from every model rank's shards (a collective over the
+    group: every rank takes part); the tree itself when ``tp`` is None."""
+    if tp is None:
+        return tree
+
+    def one(t, d):
+        if t is None or d is None:
+            return t
+        parts = [torch.empty_like(t) for _ in range(tp.size)]
+        dist.all_gather(parts, t.contiguous(), group=tp.group)
+        return torch.cat(parts, dim=d)
+
+    return tree_map(one, tree, tp.dims)

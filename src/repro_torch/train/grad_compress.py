@@ -24,10 +24,15 @@ def _groups(mesh, axis_names) -> list:
     return [] if mesh is None else [mesh.get_group(ax) for ax in axis_names]
 
 
-def compressed_psum(g, axis_names, err, mesh=None):
-    """Quantized sum of one tensor over the ranks. Returns (sum, new_err)."""
+def compressed_psum(g, axis_names, err, mesh=None, model_group=None):
+    """Quantized sum of one tensor over the ranks. Returns (sum, new_err).
+    ``model_group``: the tensor is this rank's shard over the model axis,
+    so its scale is the whole tensor's (a MAX over that group first), as
+    the reference's absmax over a tensor auto-sharded over "model"."""
     g32 = g.to(torch.float32) + err
     absmax = torch.max(torch.abs(g32))
+    if model_group is not None:
+        dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=model_group)
     groups = _groups(mesh, axis_names)
     for grp in groups:
         dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=grp)
@@ -41,10 +46,12 @@ def compressed_psum(g, axis_names, err, mesh=None):
     return total, new_err
 
 
-def compressed_psum_tree(grads, axis_names, err_tree, n_ranks: int, mesh=None):
+def compressed_psum_tree(grads, axis_names, err_tree, n_ranks: int, mesh=None,
+                         model_group=None):
     """Tree version (one scale per tensor; None: an empty subtree); returns
     (mean grads, new error-feedback tree)."""
-    out = tree_map(lambda g, e: None if g is None else compressed_psum(g, axis_names, e, mesh),
+    out = tree_map(lambda g, e: None if g is None else compressed_psum(g, axis_names, e, mesh,
+                                                                       model_group),
                    grads, err_tree)
 
     def pick(tree, i):

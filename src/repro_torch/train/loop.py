@@ -4,9 +4,11 @@ Two step flavors, the reference's, with explicit collectives where the
 reference lets XLA derive them from shardings:
 
 * **auto** (default): data parallelism over the mesh's batch axes ("pod",
-  "data"). Each rank runs its contiguous slice of the global batch (what
-  ``data.tokens.TokenDataset(mesh=...)`` hands it); gradients and the loss
-  are averaged over the data group in f32. Microbatches split the rank's
+  "data"). Each rank runs its rows of the global batch (what
+  ``data.tokens.TokenDataset(mesh=..., microbatches=tcfg.row_microbatches)``
+  hands it: its part of each of the global batch's microbatches; a batch
+  laid out for another count is refused); gradients and the loss are
+  averaged over the data group in f32. Microbatches split the rank's
   batch into ``microbatches`` contiguous chunks, as the reference's reshape
   ``(nm, b // nm)`` does, with gradients accumulated in f32. ``zero1``
   shards ``m``/``v`` over the data group on the dimension the reference's
@@ -14,7 +16,9 @@ reference lets XLA derive them from shardings:
   parameter is all-gathered (a stacked leaf sharded on its layers axis is
   owned whole, layer by layer, by one rank, which broadcasts it).
   ``zero2_grads`` reduce-scatters the accumulator each microbatch. On one
-  rank zero1 and zero2 change nothing.
+  rank zero1 and zero2 change nothing. On a (pod, data, model) mesh the
+  ZeRO group spans both batch axes, pod-major, as the reference's tuple
+  entry ``("pod", "data")``.
 * **manual-dp**: the reference's ``shard_map`` step: per-rank gradients
   reduced with the int8 compressed sum (+ error feedback, a third piece of
   state) from ``train.grad_compress``, or averaged in f32; the loss is
@@ -25,9 +29,15 @@ reference lets XLA derive them from shardings:
 
 The placements of every parameter under the rules
 (``sharding.rules.build_param_specs``) are computed in the reference's
-stacked layout and returned in ``shardings``, but a "model" axis larger
-than one (tensor or expert parallelism) is refused. ``mesh=None`` is one
-rank with no process group.
+stacked layout and returned in ``shardings``. A "model" axis larger than
+one is tensor and expert parallelism (``sharding.tp``): each rank holds
+its shards of the parameters split over "model" (``m``/``v`` too, ZeRO's
+parts taken from the shard), the models run with the ``tp`` context, the
+clip's norm is the full gradient's (squares of split leaves summed over
+the model group, replicated leaves counted once) and int8 compression
+takes each tensor's scale over the model group as well. The dense and MoE
+families train so; the recurrent and encoder-decoder ones are refused
+there. ``mesh=None`` is one rank with no process group.
 
 The parameters are a tree of tensors in the port's layout
 (``models.transformer``); a step draws its own leaves that require grad
@@ -50,6 +60,7 @@ from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.sharding.rules import (
     ShardingRules, axis_sizes, batch_axes_for_mesh, build_param_specs, spec_axes,
 )
+from repro_torch.sharding.tp import shard_params, split_dim, tp_context
 from repro_torch.train import optim
 from repro_torch.train.grad_compress import compressed_psum_tree
 
@@ -62,6 +73,14 @@ class TrainConfig:
     zero2_grads: bool = False       # keep the grad accumulator DP-sharded
     grad_compress: bool = False     # int8 compressed DP all-reduce (manual-dp)
     mode: str = "auto"              # auto | manual-dp
+
+    @property
+    def row_microbatches(self) -> int:
+        """The microbatches that a data-parallel rank's rows are laid out
+        for (``TokenDataset(microbatches=)``): the step's own in auto mode,
+        where the reference splits the global batch before sharding it; one
+        in manual-dp, where it splits each rank's rows."""
+        return self.microbatches if self.mode == "auto" else 1
 
 
 def _zip(fn, tree, other):
@@ -93,6 +112,33 @@ def _dp(mesh) -> tuple[tuple, int]:
     ba = batch_axes_for_mesh(mesh)
     sizes = axis_sizes(mesh)
     return ba, int(math.prod(sizes[a] for a in ba)) if ba else 1
+
+
+def _batch_entry(ba: tuple):
+    """The spec entry of the batch axes: one name, or the tuple."""
+    return ba if len(ba) > 1 else ba[0]
+
+
+def _batch_group(mesh, ba: tuple) -> tuple:
+    """(group, this rank's index in it) over every batch axis of ``mesh``
+    (a DeviceMesh), pod-major, among the ranks that share this rank's other
+    coordinates; (None, 0) on one batch rank. Two axes make new groups:
+    every rank of the mesh takes part, in the same order."""
+    if _dp(mesh)[1] == 1:
+        return None, 0
+    if len(ba) == 1:
+        return mesh.get_group(ba[0]), mesh.get_local_rank(ba[0])
+    names = list(mesh.mesh_dim_names)
+    ranks = mesh.mesh.permute([names.index(a) for a in ba]
+                              + [i for i, a in enumerate(names) if a not in ba])
+    ranks = ranks.reshape(math.prod(ranks.shape[:len(ba)]), -1)
+    mine = None
+    for j in range(ranks.shape[1]):
+        col = ranks[:, j].tolist()
+        group = dist.new_group(col)
+        if dist.get_rank() in col:
+            mine = (group, col.index(dist.get_rank()))
+    return mine
 
 
 def _opt_shardings(mesh, rules, shapes, logical, param_sh, zero1: bool) -> dict:
@@ -136,6 +182,21 @@ class Zero1Leaf:
             return t.narrow(self.dim, self.rank * n, n)
         return t if self.owner == self.rank else None
 
+    def to_first(self, part: Optional[torch.Tensor], like: torch.Tensor):
+        """The full moment on the group's first rank, None on the others,
+        which keep no copy: the parts gathered there, or a layer owned by
+        another rank broadcast from it (``like``: the parameter, its shape
+        and device; the moments are f32)."""
+        if self.dim is not None:
+            return _gather_to_first(part, self.group, self.rank, self.size, self.dim)
+        if self.owner != 0:
+            out = part if self.owner == self.rank else torch.empty(
+                like.shape, dtype=torch.float32, device=like.device)
+            dist.broadcast(out, src=dist.get_global_rank(self.group, self.owner),
+                           group=self.group)
+            part = out
+        return part if self.rank == 0 else None
+
     def full(self, part: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
         """The full tensor from every rank's part (``like``: its shape)."""
         if self.dim is not None:
@@ -174,6 +235,17 @@ class Zero1Leaf:
         return out.movedim(0, self.dim)
 
 
+def _gather_to_first(t: torch.Tensor, group, rank: int, size: int, dim: int):
+    """The ``size`` ranks' ``t`` concatenated on ``dim`` on the group's
+    first rank (this one ``rank``), None on the others; gloo gathers on
+    the host."""
+    if dist.get_backend(group) == "gloo":
+        t = t.cpu()
+    parts = [torch.empty_like(t) for _ in range(size)] if rank == 0 else None
+    dist.gather(t.contiguous(), parts, dst=dist.get_global_rank(group, 0), group=group)
+    return None if parts is None else torch.cat(parts, dim=dim)
+
+
 def _map_specs(fn, specs):
     if specs is None:
         return None
@@ -184,18 +256,15 @@ def _map_specs(fn, specs):
     return fn(specs)
 
 
-def _placements(cfg, mesh, opt_specs) -> Optional[Any]:
+def _placements(cfg, mesh, opt_specs, group, rank: int) -> Optional[Any]:
     """The port-layout tree of :class:`Zero1Leaf` (None: replicated) for the
-    ZeRO specs, or None on one data rank (nothing to shard)."""
+    ZeRO specs over the batch ``group`` (this rank ``rank`` of it), or None
+    on one data rank (nothing to shard)."""
     ba, dp = _dp(mesh)
     if dp == 1:
         return None
-    if len(ba) > 1:
-        raise NotImplementedError("ZeRO over two batch axes (pod, data) is not ported; "
-                                  "use a (data, model) mesh")
-    group, rank = mesh.get_group(ba[0]), mesh.get_local_rank(ba[0])
-    dims = _map_specs(lambda s: next((i for i, e in enumerate(s) if e == ba[0]), None),
-                      opt_specs)
+    dims = _map_specs(lambda s: next((i for i, e in enumerate(s) if e == _batch_entry(ba)),
+                                     None), opt_specs)
 
     def leaf(d, i, n):
         if d is None:
@@ -233,17 +302,27 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
     cfg = model.cfg
     sizes = axis_sizes(mesh)
     if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"training over a 'model' axis of {sizes['model']} (tensor or expert "
-            "parallelism) is not ported yet; use a mesh with model=1")
+        kinds = (["enc+mlp"] if cfg.arch_type == "encdec" else
+                 sorted({k for k in cfg.pattern if k in ("rglru+mlp", "mlstm", "slstm")}))
+        if kinds:
+            raise NotImplementedError(
+                f"training over a 'model' axis of {sizes['model']}: the layer kinds "
+                f"{', '.join(kinds)} of {cfg.name} have no tensor parallelism yet; "
+                "use a mesh with model=1")
     shapes, logical, param_sh = build_shardings(model, mesh, rules)
     opt_sh = _opt_shardings(mesh, rules, shapes, logical, param_sh, tcfg.zero1)
     ba, dp = _dp(mesh)
-    batch_spec = (ba if len(ba) > 1 else (ba[0] if ba else None),)
+    batch_spec = (_batch_entry(ba) if ba else None,)
+    # the MoE's aux loss is over the global batch (auto mode: the reference's
+    # manual-dp computes it on each rank's rows)
+    moe_dp = tcfg.mode == "auto" and dp > 1 and "attn+moe" in cfg.pattern
+    batch_group, batch_rank = _batch_group(mesh, ba)
+    moe_group = batch_group if moe_dp else None
+    tp = tp_context(mesh, port_layout(cfg, _map_specs(split_dim, param_sh), _local_dim))
     # ZeRO-1 placements of m/v (and, for ZeRO-2, of the gradients): the
     # reference's zero1 specs whatever tcfg.zero1 says, as its zero2 uses them
     zero_sh = _opt_shardings(mesh, rules, shapes, logical, param_sh, True)["m"]
-    places = (_placements(cfg, mesh, zero_sh)
+    places = (_placements(cfg, mesh, zero_sh, batch_group, batch_rank)
               if tcfg.mode == "auto" and (tcfg.zero1 or tcfg.zero2_grads) else None)
     groups = [] if mesh is None or dp == 1 else [mesh.get_group(a) for a in ba]
 
@@ -271,11 +350,18 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
                         else pl.reduce(t.to(torch.float32).clone()), g, places)
 
     def grads_of(params, batch):
+        laid = getattr(batch, "microbatches", tcfg.row_microbatches)
+        if dp > 1 and laid != tcfg.row_microbatches:
+            raise ValueError(
+                f"the batch's rows are laid out for {laid} microbatches but the step takes "
+                f"{tcfg.row_microbatches} (mode {tcfg.mode!r}): build the dataset with "
+                f"TokenDataset(microbatches=TrainConfig.row_microbatches)")
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         flat = tree_leaves(leaves)
 
         def one(mb):
-            loss, ex = model.loss_fn(mb, mesh=mesh, params=leaves)
+            loss, ex = model.loss_fn(mb, mesh=mesh, params=leaves, tp=tp,
+                                     batch_group=moe_group)
             gs = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
             return loss.detach(), ex, _leaves_like(leaves, list(gs))
 
@@ -310,19 +396,14 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
             norm = None
             if zero2:
                 grads = tree_map(lambda g: None if g is None else g / dp, grads)
-                # the global norm: every rank's parts, then the replicated leaves once
-                zero = torch.zeros((), device=loss.device)
-                sq = lambda sharded: tree_map(  # noqa: E731
-                    lambda g, pl: torch.sum(torch.square(g))
-                    if g is not None and (pl is not None) == sharded else zero, grads, places)
-                part = sum(tree_leaves(sq(True)), zero)
-                dist.all_reduce(part, group=groups[0])
-                norm = torch.sqrt(part + sum(tree_leaves(sq(False)), zero))
+                norm = _global_norm(grads, places, batch_group, tp)
                 if not tcfg.zero1:
                     grads = tree_map(lambda g, pl, p: g if pl is None else pl.full(g, _f32_like(p)),
                                      grads, places, params)
             elif groups:
                 grads = tree_map(lambda g: mean_over(g, groups), grads)
+            if tp is not None and not zero2:
+                norm = _global_norm(grads, None, None, tp)
             if groups:
                 loss = mean_over(loss, groups)
                 ex = {k: mean_over(torch.as_tensor(v, device=loss.device), groups)
@@ -340,13 +421,16 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
                 # one int8 scale per tensor of the reference's tree, whose
                 # layers of one pattern position are stacked into one tensor
                 stack = lambda ts: torch.stack(ts)  # noqa: E731
-                mean, err = compressed_psum_tree(reference_layout(cfg, grads, stack), ba,
-                                                 reference_layout(cfg, err, stack), dp, mesh)
+                mean, err = compressed_psum_tree(
+                    reference_layout(cfg, grads, stack), ba, reference_layout(cfg, err, stack),
+                    dp, mesh, model_group=None if tp is None else tp.group)
                 grads, err = port_layout(cfg, mean), port_layout(cfg, err)
             else:
                 grads = tree_map(lambda g: mean_over(g, dp_groups), grads)
             loss = mean_over(loss, dp_groups[:1])
-            new_params, new_opt, om = optim.adamw_update(opt_cfg, params, grads, opt_state)
+            norm = None if tp is None else _global_norm(grads, None, None, tp)
+            new_params, new_opt, om = optim.adamw_update(opt_cfg, params, grads, opt_state,
+                                                         norm=norm)
             return new_params, new_opt, err, {"loss": loss, **om}
     else:
         raise ValueError(tcfg.mode)
@@ -355,10 +439,46 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
         "params": param_sh, "opt": opt_sh, "data": batch_spec,
         "batch_shardings": batch_shardings, "param_shapes": shapes,
         "placements": places if tcfg.zero1 else None, "zero_specs": zero_sh,
-        "zero_rank": mesh.get_local_rank(ba[0]) if mesh is not None and ba else 0,
-        "zero_size": dp,
+        "zero_rank": batch_rank,
+        "zero_size": dp, "batch_entry": _batch_entry(ba) if ba else None, "tp": tp,
     }
     return step, shardings
+
+
+def _local_dim(d, i, n):
+    """A stacked leaf's split dimension as its port leaf's (a layer of it)."""
+    return d if i is None or d is None else d - 1
+
+
+def _global_norm(grads, places, zero_group, tp) -> torch.Tensor:
+    """The norm of the full gradient from this rank's parts: the squares
+    of ZeRO-2's parts (``places`` not None) summed over ``zero_group``,
+    those of leaves split over the model axis (``tp``) over its group,
+    replicated leaves counted once."""
+    zero = torch.zeros((), device=next(g for g in tree_leaves(grads) if g is not None).device)
+    z = places if places is not None else tree_map(lambda _: None, grads)
+    m = tp.dims if tp is not None else tree_map(lambda _: None, grads)
+
+    def sq(zsplit: bool, msplit: bool) -> torch.Tensor:
+        return sum(tree_leaves(tree_map(
+            lambda g, pl, d: torch.sum(torch.square(g))
+            if g is not None and (pl is not None) == zsplit and (d is not None) == msplit
+            else zero, grads, z, m)), zero)
+
+    if tp is None:  # ZeRO-2 alone
+        part = sq(True, False)
+        dist.all_reduce(part, group=zero_group)
+        return torch.sqrt(part + sq(False, False))
+    split = sq(False, True)
+    if places is not None:
+        both, part = sq(True, True), sq(True, False)
+        dist.all_reduce(both, group=zero_group)
+        dist.all_reduce(part, group=zero_group)
+        split = split + both
+    else:
+        part = zero
+    dist.all_reduce(split, group=tp.group)
+    return torch.sqrt(split + part + sq(False, False))
 
 
 def _f32_like(p: torch.Tensor) -> torch.Tensor:
@@ -368,11 +488,14 @@ def _f32_like(p: torch.Tensor) -> torch.Tensor:
 
 def init_train_state(model, mesh, shardings, seed: int = 0):
     """Parameters drawn anew from a generator seeded ``seed`` on the
-    model's device (``Model.init``), and the optimizer state, ``m``/``v``
-    this rank's ZeRO-1 parts when ``shardings`` places them."""
+    model's device (``Model.init``), this rank's shards of them over the
+    model axis (so every mesh starts from the bits of the one-rank draw),
+    and the optimizer state, ``m``/``v`` this rank's ZeRO-1 parts when
+    ``shardings`` places them."""
     device = model.weights.emb.device
     params = tree_map(lambda t: t.detach(),
                       model.init(torch.Generator(device=device).manual_seed(seed)))
+    params = shard_params(params, shardings.get("tp"))
     return params, init_opt_state(params, shardings.get("placements"))
 
 
@@ -389,19 +512,50 @@ def full_opt_state(params, opt_state, placements) -> dict:
             "step": opt_state["step"]}
 
 
+def _whole_on_first(t, p, pl, d, tp, batch_rank: int) -> Optional[torch.Tensor]:
+    """One leaf made whole on the host of the default group's first rank
+    (None on every other rank, which keeps nothing): ``t`` is this rank's
+    ZeRO part of it (``pl``; None: whole over the batch group, where this
+    rank is ``batch_rank``) of its shard on dimension ``d`` over the model
+    axis (``tp``); ``p`` is that shard's parameter."""
+    if pl is not None:
+        t = pl.to_first(t, p)
+    if batch_rank != 0:
+        return None
+    if tp is not None and d is not None:
+        t = _gather_to_first(t, tp.group, tp.rank, tp.size, d)
+    elif tp is not None and tp.rank != 0:
+        return None
+    return None if t is None else t.detach().cpu()
+
+
 def save_train_state(manager, model, step: int, params, opt_state, shardings) -> None:
-    """Checkpoint ``step`` in the reference's format: ZeRO-1 parts gathered,
-    the trees in the reference's stacked layout, written by the first rank
-    of the default group (every rank takes part in the gather)."""
+    """Checkpoint ``step`` in the reference's format: each leaf's ZeRO-1
+    parts and model-axis shards gathered to the first rank of the default
+    group and moved to its host before the next leaf (so no rank holds the
+    whole state on its device, and the other ranks keep nothing), the trees
+    in the reference's stacked layout; the file is a one-rank save of the
+    same state. Every rank takes part in the gathers."""
     cfg = model.cfg
-    opt = full_opt_state(params, opt_state, shardings.get("placements"))
+    tp, places = shardings.get("tp"), shardings.get("placements")
+    unplaced = tree_map(lambda _: None, params)
+    dims = unplaced if tp is None else tp.dims
+
+    def whole(tree, pls):
+        return tree_map(lambda t, p, pl, d: _whole_on_first(t, p, pl, d, tp,
+                                                            shardings["zero_rank"]),
+                        tree, params, pls, dims)
+
+    p_host = whole(params, unplaced)
+    m_host = whole(opt_state["m"], places or unplaced)
+    v_host = whole(opt_state["v"], places or unplaced)
     if dist.is_available() and dist.is_initialized() and dist.get_rank() != 0:
         dist.barrier()
         return
-    stack = lambda ts: torch.stack([t.detach().cpu() for t in ts])  # noqa: E731
-    manager.save(step, reference_layout(cfg, params, stack),
-                 {"m": reference_layout(cfg, opt["m"], stack),
-                  "v": reference_layout(cfg, opt["v"], stack), "step": opt["step"]})
+    stack = lambda ts: torch.stack(ts)  # noqa: E731
+    manager.save(step, reference_layout(cfg, p_host, stack),
+                 {"m": reference_layout(cfg, m_host, stack),
+                  "v": reference_layout(cfg, v_host, stack), "step": opt_state["step"]})
     if dist.is_available() and dist.is_initialized():
         dist.barrier()
 
@@ -418,26 +572,38 @@ class _At:
 
 def restore_layout(manager, model, shardings, step=None):
     """(params, opt_state, step) from checkpoint ``step`` (the latest when
-    None) in the port's layout on the model's device; ``m``/``v`` this
-    rank's ZeRO-1 parts, each read as a shard of its memory-mapped leaf."""
+    None) in the port's layout on the model's device: the parameters and
+    ``m``/``v`` this rank's shards over the model axis, ``m``/``v`` also
+    its ZeRO-1 parts, each read as a shard of its memory-mapped leaf."""
     cfg = model.cfg
     device = model.weights.emb.device
     shapes = shardings["param_shapes"]
-    whole = _map_specs(lambda s: (), shardings["params"])
     rank, size = shardings["zero_rank"], shardings["zero_size"]
+    tp = shardings.get("tp")
+    model_dims = _map_specs(lambda s: None if tp is None else split_dim(s), shardings["params"])
     dims = None
-    mv_index = whole
     if shardings.get("placements") is not None:
-        dims = _map_specs(lambda s: next((i for i, e in enumerate(s) if e == "data"), None),
+        entry = shardings["batch_entry"]
+        dims = _map_specs(lambda s: next((i for i, e in enumerate(s) if e == entry), None),
                           shardings["zero_specs"])
 
-        def index(struct, d):
-            if d is None:
-                return ()
-            n = struct.shape[d] // size
-            return (slice(None),) * d + (slice(rank * n, (rank + 1) * n),)
+    def index(struct, md, d=None):
+        """This rank's slices of a stacked leaf: ``md`` over the model axis,
+        ``d`` over the ZeRO group."""
+        idx = [slice(None)] * len(struct.shape)
+        for dim, r, k in ((md, None if tp is None else tp.rank, None if tp is None else tp.size),
+                          (d, rank, size)):
+            if dim is not None:
+                n = struct.shape[dim] // k
+                idx[dim] = slice(r * n, (r + 1) * n)
+        while idx and idx[-1] == slice(None):
+            idx.pop()
+        return tuple(idx)
 
-        mv_index = _zip(index, shapes, dims)
+    whole = _zip(index, shapes, model_dims)
+    mv_index = whole if dims is None else _zip(
+        lambda struct_d, md: index(struct_d[0], md, struct_d[1]),
+        _zip(lambda struct, d: (struct, d), shapes, dims), model_dims)
     template = {"params": shapes, "opt": {"m": shapes, "v": shapes, "step": 0}}
     index_tree = {"params": whole, "opt": {"m": mv_index, "v": mv_index, "step": ()}}
     tree, manifest = manager.restore(step, template=template, shardings=index_tree)
@@ -455,10 +621,11 @@ def restore_layout(manager, model, shardings, step=None):
                 return a.x[a.i - rank * per] if a.i // per == rank else None
             return a.x[a.i]
 
-        # in the model's own key order (the checkpoint's is sorted)
+        # in the key order of the model's own tree (the checkpoint's is
+        # sorted): a step sums the gradients' squares in that order
         return tree_map(lambda s, t: None if t is None else t.to(device=device,
                                                                  dtype=dtype_of(s)),
-                        model.param_specs()[0], tree_map(take, at, d))
+                        model.params, tree_map(take, at, d))
 
     params = port(tree["params"], lambda s: s.dtype, False)
     f32 = lambda s: torch.float32  # noqa: E731

@@ -365,14 +365,20 @@ def test_microbatch_equivalence():
     assert abs(outs[1][1] - outs[4][1]) < 1e-4
 
 
-def test_model_axis_refused():
+@pytest.mark.parametrize("arch,kinds", [("recurrentgemma-2b", "rglru+mlp"),
+                                        ("xlstm-350m", "mlstm, slstm"),
+                                        ("whisper-tiny", "enc+mlp")])
+def test_model_axis_refused(arch, kinds):
+    """The recurrent and encoder-decoder families have no tensor
+    parallelism yet: a "model" axis of 2 is refused with their layer kinds
+    named (the dense and MoE families train there: test_torch_tp.py)."""
     class _Mesh(_DataMesh):
         def __init__(self):
             self.shape, self.rank = (2, 2), 0
 
-    model = lm_params_from_arrays(PC.get_reduced("olmo-1b"),
-                                  ref_weights(RC.get_reduced("olmo-1b"), 0), device="cpu")
-    with pytest.raises(NotImplementedError, match="model"):
+    model = lm_params_from_arrays(PC.get_reduced(arch), ref_weights(RC.get_reduced(arch), 0),
+                                  device="cpu")
+    with pytest.raises(NotImplementedError, match=kinds.replace("+", r"\+")):
         PL.make_train_step(model, _Mesh(), default_rules(_Mesh()), PL.TrainConfig())
 
 
@@ -413,13 +419,14 @@ RANK_CODE = textwrap.dedent("""
         cfg = get_reduced(arch)
         with open(os.path.join(tmp, arch + ".pkl"), "rb") as f:
             model = lm_params_from_arrays(cfg, pickle.load(f), device="cpu")
-        step, sh = make_train_step(model, mesh, default_rules(mesh),
-                                   TrainConfig(opt=optim.AdamWConfig(**OPT), **fields))
+        tcfg = TrainConfig(opt=optim.AdamWConfig(**OPT), **fields)
+        step, sh = make_train_step(model, mesh, default_rules(mesh), tcfg)
         params = tree_map(lambda t: t.detach(), model.params)
         opt = init_opt_state(params, sh["placements"])
         err = init_error_tree(params)
         ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=16, global_batch=8,
-                                             seed=0), mesh=mesh, device="cpu")
+                                             seed=0), mesh=mesh, device="cpu",
+                          microbatches=tcfg.row_microbatches)
         losses = []
         for s in range(steps):
             if fields.get("mode") == "manual-dp":
