@@ -84,7 +84,9 @@ graph:
   (manual-dp with int8 compression against the same on the CPU, ZeRO-1
   against one rank over the whole batch); the sequence-sharded decode on
   those four ranks against the unsharded one, and gemma3-4b at full width
-  through it on the one NCCL rank.
+  through it on the one NCCL rank; tensor and expert parallelism on the
+  four ranks for every family (`TRAIN_TP`), each cut in f32 against one
+  rank and timed in bf16 (``[train tp]`` lines).
 
 Any failure raises and exits non-zero. The second-to-last line of standard
 output is the kernels' JSON record, the last line the device JSON. Detailed
@@ -2852,12 +2854,24 @@ SEQ_SHARD_F32 = 1e-4       # f32 seq-sharded against unsharded: relative norm a 
 # cut on the card (the one rank's process is rank 0, after the mesh's
 # run), then in bf16 timed with one step profiled. The arch's
 # TRAIN_OVERRIDES where `overrides` (olmo: microbatches 2, zero1). Where
-# `save`, the bf16 state is then checkpointed (`_tp_save`).
+# `save`, the bf16 state is then checkpointed (`_tp_save`). An
+# encoder-decoder's rows carry `frames` stub frames each.
 TRAIN_TP = (
     dict(arch="olmo-1b", layers=2, mesh=(2, 2), rows=4, seq=4096, steps=3, overrides=True,
          save=True),
     dict(arch="qwen2-moe-a2.7b", layers=1, mesh=(1, 4), rows=2, seq=2048, steps=2,
          overrides=False),
+    # one (rglru, rglru, local) cycle; microbatches 2, zero1
+    dict(arch="recurrentgemma-2b", layers=3, mesh=(2, 2), rows=4, seq=4096, steps=1,
+         overrides=True),
+    # the sLSTM's cells run one after another: half the sequence, the
+    # same tokens a step
+    dict(arch="xlstm-350m", layers=2, mesh=(1, 4), rows=4, seq=1024, steps=1, overrides=False,
+         reduced=("sequence 2,048 -> 1,024, rows 2 -> 4 (the sLSTM's time loop is "
+                  "sequential)",)),
+    # the whole 4 + 4 layers; microbatches 4
+    dict(arch="whisper-tiny", layers=8, mesh=(2, 2), rows=8, seq=448, frames=1500, steps=2,
+         overrides=True),
 )
 TRAIN_TP_LOSS_RTOL = 1e-6  # f32 losses, mesh against one rank
 TRAIN_TP_GRAD = 1e-4       # f32 first-step gradient: each leaf's relative norm of the difference
@@ -3016,15 +3030,30 @@ def _train_reduced() -> list:
     return rows
 
 
-def _grad_of(model, batch) -> dict:
-    """The gradient tree of ``loss_fn`` at the model's parameters."""
+def _grad_of(model, batch, microbatches: int = 1) -> list:
+    """The gradient leaves of ``loss_fn`` at the model's parameters (f32):
+    with ``microbatches``, the mean of the gradients of that many
+    contiguous chunks of the batch's rows, as a train step takes them."""
     from repro_torch.models.layers import tree_leaves, tree_map
 
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), model.params)
-    loss, _ = model.loss_fn(batch, params=leaves)
     flat = tree_leaves(leaves)
-    gs = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
-    return [g.float() for g in gs]
+    return _mean_grads(lambda mb: model.loss_fn(mb, params=leaves)[0], flat, batch,
+                       microbatches)
+
+
+def _mean_grads(loss_of, flat: list, batch: dict, microbatches: int) -> list:
+    """The mean over ``microbatches`` contiguous row chunks of ``batch`` of
+    the f32 gradients of ``loss_of(chunk)`` with respect to ``flat``."""
+    b = next(iter(batch.values())).shape[0] // microbatches
+    acc = None
+    for i in range(microbatches):
+        gs = torch.autograd.grad(loss_of({k: v[i * b:(i + 1) * b] for k, v in batch.items()}),
+                                 flat, allow_unused=True, materialize_grads=True)
+        acc = ([g.float() for g in gs] if acc is None
+               else [a + g.float() for a, g in zip(acc, gs)])
+        del gs
+    return acc if microbatches == 1 else [a / microbatches for a in acc]
 
 
 def _cut_grads(cfg) -> dict:
@@ -3386,12 +3415,29 @@ def _tp_cut(spec: dict, dtype: str):
     return cfg, tcfg, model
 
 
+def _tp_shards(model, tcfg, mesh) -> tuple:
+    """This rank's shards of ``model``'s draw on ``mesh`` and a fresh
+    optimizer state for them; the whole draw is then dropped (to the meta
+    device): four ranks share the card and its host, and a step reads only
+    the shards."""
+    from repro_torch.sharding.rules import default_rules
+    from repro_torch.sharding.tp import shard_params
+    from repro_torch.train.loop import init_opt_state, make_train_step
+
+    _, sh = make_train_step(model, mesh, default_rules(mesh), tcfg)
+    params = shard_params(_detached(model), sh["tp"])
+    model.weights.to("meta")
+    return params, init_opt_state(params, sh["placements"])
+
+
 def _tp_data(cfg, spec: dict, mesh=None, microbatches: int = 1):
     from repro_torch.data.tokens import TokenDataset, TokenDatasetConfig
 
     return TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=spec["seq"],
                                            global_batch=spec["rows"], seed=8, structure=0.9),
-                        mesh=mesh, device=DEVICE, microbatches=microbatches)
+                        mesh=mesh, device=DEVICE, microbatches=microbatches,
+                        frames=cfg.arch_type == "encdec", d_model=cfg.d_model,
+                        n_frames=spec.get("frames", 0))
 
 
 def _dropped_share(model, params, batch, tp=None) -> float:
@@ -3402,25 +3448,57 @@ def _dropped_share(model, params, batch, tp=None) -> float:
     return log_.dropped_share(1)[0]
 
 
-def _tp_grads(model, params, batch, tp, data_group) -> list:
+def _tp_grads(model, params, batch, tp, data_group, microbatches: int = 1,
+              keep: bool = True) -> list | None:
     """The gradient of ``loss_fn`` at ``params`` over the data group's
-    batch (the mean of the ranks'), gathered whole over the model axis."""
+    batch (the mean of the ranks', each the mean over ``microbatches`` as
+    `_grad_of`), gathered whole over the model axis, on the host where
+    ``keep`` (None elsewhere: the gather is a collective of every rank)."""
     import torch.distributed as dist
 
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.sharding.tp import gather_params
 
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss, _ = model.loss_fn(batch, params=leaves, tp=tp)
-    gs = torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=True, materialize_grads=True)
-    it = iter(gs)
-    grads = tree_map(lambda _: next(it).float(), leaves)
+    gs = iter(_mean_grads(lambda mb: model.loss_fn(mb, params=leaves, tp=tp)[0],
+                          tree_leaves(leaves), batch, microbatches))
+    grads = tree_map(lambda _: next(gs), leaves)
     if data_group is not None and dist.get_world_size(data_group) > 1:
         n = dist.get_world_size(data_group)
         for g in tree_leaves(grads):
             dist.all_reduce(g, group=data_group)
             g /= n
-    return tree_leaves(gather_params(grads, tp))
+    return _host_leaves(gather_params(grads, tp), keep)
+
+
+def _host_leaves(tree, keep: bool) -> list | None:
+    """``tree``'s leaves copied to the host one by one where ``keep``."""
+    from repro_torch.models.layers import tree_leaves
+
+    return [t.cpu() for t in tree_leaves(tree)] if keep else None
+
+
+def _free_caches() -> None:
+    """Free this process's cached device blocks, the pinned host blocks
+    that gloo's staging of CUDA tensors left cached (the host allocator
+    keeps them, rounded up to a power of two, until asked) and the heap
+    that malloc keeps: four rank processes share the card and the host."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+    _trim_heap()
+
+
+def _trim_heap() -> None:
+    """Return the freed heap to the system (glibc's ``malloc_trim``)."""
+    import ctypes
+    import ctypes.util
+
+    libc = ctypes.util.find_library("c")
+    if libc is not None and hasattr(ctypes.CDLL(libc), "malloc_trim"):
+        ctypes.CDLL(libc).malloc_trim(0)
 
 
 def _tp_run(spec: dict, rank: int) -> dict:
@@ -3435,7 +3513,7 @@ def _tp_run(spec: dict, rank: int) -> dict:
 
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.layers import tree_leaves
-    from repro_torch.sharding.tp import gather_params, shard_params
+    from repro_torch.sharding.tp import gather_params
 
     tag = f"tp.{spec['arch']}"
     nd, nm = spec["mesh"]
@@ -3444,30 +3522,33 @@ def _tp_run(spec: dict, rank: int) -> dict:
     cfg, tcfg, model = _tp_cut(spec, "float32")
     ds = _tp_data(cfg, spec, mesh, tcfg.row_microbatches)
     t0 = time.perf_counter()
-    run = _train_run(model, tcfg, ds, spec["steps"], mesh=mesh)
+    params0, opt0 = _tp_shards(model, tcfg, mesh)
+    run = _train_run(model, tcfg, ds, spec["steps"], mesh=mesh, params=params0, opt=opt0)
     sh, losses = run["shardings"], run["loss"]
     tp = sh["tp"]
-    gathered = tree_leaves(gather_params(run["params"], tp))
-    params0 = shard_params(_detached(model), tp)
-    grads = _tp_grads(model, params0, ds(0), tp, mesh.get_group("data"))
+    # the mesh's parameters whole on the host (rank 0 compares them), and
+    # its state freed before the gradient's pass: four ranks share the card
+    gathered = _host_leaves(gather_params(run["params"], tp), rank == 0)
+    del run, opt0
+    grads = _tp_grads(model, params0, ds(0), tp, mesh.get_group("data"), tcfg.microbatches,
+                      keep=rank == 0)
     dropped = (_dropped_share(model, params0, _tp_data(cfg, spec)(0), tp)
                if cfg.moe_experts else None)
     out[f"{tag}.f32_mesh_s"] = np.asarray(time.perf_counter() - t0)
-    del model, run, params0
+    del model, params0
     if rank != 0:
         del gathered, grads
-    gc.collect()
-    torch.cuda.empty_cache()  # the waiting ranks' cached blocks, for rank 0's run
+    _free_caches()  # the waiting ranks' cached blocks, for rank 0's run
     dist.barrier()
     if rank == 0:  # one rank over the whole batch, the same cut and seed
         model1 = _tp_cut(spec, "float32")[2]
         ds1 = _tp_data(cfg, spec)
         one = _train_run(model1, tcfg, ds1, spec["steps"], track=True)
-        g1 = _grad_of(model1, ds1(0))
+        g1 = _grad_of(model1, ds1(0), tcfg.microbatches)
         row = {"loss_mesh": losses, "loss_one": one["loss"],
                "loss_max_rel": max(abs(a / b - 1) for a, b in zip(losses, one["loss"])),
-               "grad_max_leaf_rel": max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-                                        for a, b in zip(grads, g1))}
+               "grad_max_leaf_rel": max(((a - b.cpu()).norm() / b.norm().cpu().clamp_min(1e-30))
+                                        .item() for a, b in zip(grads, g1))}
         if cfg.moe_experts:
             row["dropped_mesh"] = dropped
             row["dropped_one"] = _dropped_share(model1, _detached(model1), ds1(0))
@@ -3475,8 +3556,8 @@ def _tp_run(spec: dict, rank: int) -> dict:
         clear_max = dmax = 0.0
         excused = entries = 0
         for p, q, g in zip(gathered, tree_leaves(one["params"]), tree_leaves(one["gmin"])):
-            d = (p.float() - q.float()).abs()
-            clear = g > TRAIN_CLEAR
+            d = (p.float() - q.float().cpu()).abs()
+            clear = g.cpu() > TRAIN_CLEAR
             entries += d.numel()
             excused += int((~clear).sum())
             dmax = max(dmax, d.max().item())
@@ -3490,14 +3571,16 @@ def _tp_run(spec: dict, rank: int) -> dict:
                          and (not cfg.moe_experts or row["dropped_mesh"] == row["dropped_one"]))
         out[f"{tag}.f32"] = np.asarray(json.dumps(row))
         del model1, one, g1, gathered, grads
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free_caches()
     dist.barrier()
     # bf16: timed steps, one profiled, this process's peak
     cfg, tcfg, model = _tp_cut(spec, "bfloat16")
     ds = _tp_data(cfg, spec, mesh, tcfg.row_microbatches)
+    params0, opt0 = _tp_shards(model, tcfg, mesh)
     torch.cuda.reset_peak_memory_stats()
-    run = _train_run(model, tcfg, ds, TRAIN_TP_BF16_STEPS, mesh=mesh)
+    run = _train_run(model, tcfg, ds, TRAIN_TP_BF16_STEPS, mesh=mesh, params=params0,
+                     opt=opt0)
+    del params0, opt0
     params, opt, step_fn = run["params"], run["opt"], run["step_fn"]
     batch = ds(TRAIN_TP_BF16_STEPS)
     (params, opt, met), prof = _profiled_collectives(lambda: step_fn(params, opt, batch))
@@ -3506,8 +3589,7 @@ def _tp_run(spec: dict, rank: int) -> dict:
     if spec.get("save"):
         bf16["save"] = _tp_save(model, params, opt, run["shardings"], rank)
     del model, run, params, opt, step_fn
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free_caches()
     dist.barrier()
     if rank == 0:  # the same cut on one rank over the whole batch, for what the mesh costs
         model1 = _tp_cut(spec, "bfloat16")[2]
@@ -3516,8 +3598,7 @@ def _tp_run(spec: dict, rank: int) -> dict:
         bf16.update(one_rank_s=one["s"], one_rank_loss=one["loss"],
                     one_rank_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         del model1, one
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free_caches()
     dist.barrier()
     out[f"{tag}.bf16"] = np.asarray(json.dumps(bf16))
     return out
@@ -3568,7 +3649,9 @@ def _profiled_collectives(fn) -> tuple:
     """``fn()`` (one train step) under ``torch.profiler``: wall ms, the
     host ms inside gloo's collectives (its ``gloo:*`` events: staging
     through the host included) and their share of the wall, the device's
-    busy ms and idle share."""
+    busy ms (its kernels, copies and fills) and idle share. The profiler's
+    raw events are summed as they are: building its event tree takes
+    minutes for a step of the sLSTM's thousands of cells."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3579,19 +3662,16 @@ def _profiled_collectives(fn) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    events = prof.key_averages()
-    busy_ms = sum(dev_us(e) for e in events if e.device_type == DeviceType.CUDA) / 1e3
-    coll = [e for e in events if e.key.startswith("gloo:")]
-    coll_ms = sum(e.cpu_time_total for e in coll) / 1e3
-    by_op: dict = {}
-    for e in coll:  # an op's events come from more than one thread
-        by_op[e.key] = by_op.get(e.key, 0.0) + e.cpu_time_total / 1e3
+    busy_ns, by_op, count = 0, {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            busy_ns += e.duration_ns()
+        elif e.name().startswith("gloo:"):  # an op's events come from more than one thread
+            by_op[e.name()] = by_op.get(e.name(), 0.0) + e.duration_ns() / 1e6
+            count += 1
+    coll_ms, busy_ms = sum(by_op.values()), busy_ns / 1e6
     return res, {"wall_ms": 1e3 * wall, "collective_host_ms": coll_ms,
-                 "collective_share": coll_ms / (1e3 * wall),
-                 "collectives": sum(e.count for e in coll),
+                 "collective_share": coll_ms / (1e3 * wall), "collectives": count,
                  "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / (1e3 * wall),
                  "by_op": by_op}
 
@@ -3599,10 +3679,14 @@ def _profiled_collectives(fn) -> tuple:
 def _train_four_ranks() -> list[dict]:
     import tempfile
 
+    _free_caches()
     with tempfile.TemporaryDirectory(dir=_scratch()) as tmp:
+        # four processes share the card: their allocators grow segments in
+        # place rather than strand reserved blocks
+        env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--train-rank", str(k), tmp],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
             for k in range(TRAIN_RANKS)]
         try:
             outs = [p.communicate(timeout=900) for p in procs]
@@ -3722,6 +3806,18 @@ def _four_rank_checks() -> dict:
     return row
 
 
+def _tp_reduced(spec: dict) -> list:
+    """The cuts of ``spec``'s run from its arch's published configuration."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(spec["arch"])
+    cuts = [f"n_layers {cfg.n_layers} -> {spec['layers']}"] if spec["layers"] < cfg.n_layers \
+        else []
+    if spec.get("frames"):
+        cuts.append(f"stub frames: {spec['frames']} a row, the frontend a linear map")
+    return cuts + list(spec.get("reduced", ())) + ["random weights from seed 5"]
+
+
 def _tp_rows(ranks: list) -> list:
     """(e)'s rows: each cut's f32 check (rank 0's), and its bf16 seconds a
     step (the median after the first), peak GB and profiled collective
@@ -3733,7 +3829,8 @@ def _tp_rows(ranks: list) -> list:
         bf16 = [json.loads(str(r[f"{tag}.bf16"])) for r in ranks]
         steady = [float(np.median(b["s"][1:])) for b in bf16]
         row = {"arch": spec["arch"], "layers": spec["layers"], "mesh": list(spec["mesh"]),
-               "tokens": [spec["rows"], spec["seq"]], "card": RECORD.get("nvidia_smi"),
+               "tokens": [spec["rows"], spec["seq"]], "reduced": _tp_reduced(spec),
+               "card": RECORD.get("nvidia_smi"),
                "backend": "gloo, four ranks on one card",
                "f32": f32, "f32_mesh_s": float(ranks[0][f"{tag}.f32_mesh_s"]),
                "bf16_s_per_step": max(steady), "bf16_s_per_step_by_rank": steady,
@@ -3806,8 +3903,9 @@ def phase_train() -> None:
         against the unsharded decode, and gemma3-4b at full width on the
         one NCCL rank in bf16 and in f32 (`_seq_shard_full`).
     (e) Tensor and expert parallelism on the same four gloo ranks:
-        olmo-1b and qwen2-moe-a2.7b at full width, cut in depth, against
-        one rank in f32, then timed in bf16 (`_tp_run`, `_tp_rows`); the
+        olmo-1b, qwen2-moe-a2.7b, recurrentgemma-2b and xlstm-350m at full
+        width, cut in depth, and whisper-tiny whole, against one rank in
+        f32, then timed in bf16 (`_tp_run`, `_tp_rows`); the
         olmo cut's bf16 state checkpointed, its parameters read back bit
         for bit against the mesh's (`_tp_save`).
     """

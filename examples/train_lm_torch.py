@@ -6,14 +6,18 @@ monitoring.
     PYTHONPATH=src python examples/train_lm_torch.py --device cpu --steps 30
     PYTHONPATH=src python examples/train_lm_torch.py --arch olmo-1b --full --steps 8
     PYTHONPATH=src python examples/train_lm_torch.py --resume --ckpt-dir build/lm_ckpt
+    PYTHONPATH=src torchrun --nproc-per-node 4 examples/train_lm_torch.py \
+        --device cpu --arch xlstm-350m --model 4 --steps 10
 
 The flags of ``examples/train_lm.py`` (the JAX package's script) plus
 ``--device`` (default ``cuda``; without a GPU pass ``--device cpu``),
 ``--full`` (the arch's published configuration in bf16 under full remat,
 with its TRAIN_OVERRIDES and a global batch of 8 x 4,096 unless
 ``--batch``/``--seq`` say otherwise), ``--ckpt-dir`` and ``--resume``
-(continue from the latest checkpoint there). Under ``torchrun`` each process
-is one data-parallel rank of a ("data", "model") mesh; alone it is one rank.
+(continue from the latest checkpoint there) and ``--model`` (the size of the
+mesh's "model" axis: tensor and expert parallelism, any arch). Under
+``torchrun`` each process is one rank of a ("data", "model") mesh of
+world / model by model ranks; alone it is one rank.
 """
 import argparse
 import datetime
@@ -61,7 +65,11 @@ def main():
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--model", type=int, default=1,
+                   help='ranks on the mesh\'s "model" axis (under torchrun)')
     args = p.parse_args()
+    if args.model > 1 and "WORLD_SIZE" not in os.environ:
+        p.error("--model > 1 needs a torchrun launch of a multiple of that many processes")
 
     over = {}
     if args.preset == "100m":
@@ -83,7 +91,7 @@ def main():
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
         dist.init_process_group("nccl" if args.device == "cuda" else "gloo",
                                 timeout=datetime.timedelta(seconds=600))
-        mesh = make_debug_mesh(device_type=args.device)
+        mesh = make_debug_mesh(n_model=args.model, device_type=args.device)
     lead = mesh is None or dist.get_rank() == 0
 
     model = build_model(cfg, device=args.device)

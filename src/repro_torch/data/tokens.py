@@ -60,16 +60,18 @@ class TokenBatch(dict):
 
 class TokenDataset:
     """dataset(step) -> batch dict of tensors on ``device``: ``tokens`` and
-    ``labels`` (int32), ``prefix_embeds`` or ``frames`` (f32) when asked."""
+    ``labels`` (int32), ``prefix_embeds`` or ``frames`` (f32) when asked,
+    ``n_frames`` frames a row (default: the sequence length)."""
 
     def __init__(self, cfg: TokenDatasetConfig, mesh=None, prefix_len: int = 0,
                  d_model: int = 0, frames: bool = False, device="cuda",
-                 microbatches: int = 1):
+                 microbatches: int = 1, n_frames: int = 0):
         self.cfg = cfg
         self.mesh = mesh
         self.prefix_len = prefix_len
         self.d_model = d_model
         self.frames = frames
+        self.n_frames = n_frames or cfg.seq_len
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for but no CUDA device is "
@@ -116,7 +118,7 @@ class TokenDataset:
         if self.frames:
             rng = np.random.default_rng(self.cfg.seed + 11 + step)
             batch["frames"] = rng.standard_normal(
-                (self.cfg.global_batch, self.cfg.seq_len, self.d_model)
+                (self.cfg.global_batch, self.n_frames, self.d_model)
             ).astype(np.float32)
         return batch
 

@@ -219,17 +219,17 @@ def block_apply(
     x is (B, 1, D) and positions is (B,) absolute position of the new token.
     Only ``attn+moe`` has an auxiliary loss; the other kinds give 0.0.
     ``tp`` (``sharding.tp.TPContext``): the forward with this rank's
-    shards of the attention, MLP and MoE weights (the training path, an
-    attention kind, no cache); the norms and the residual stream stay
+    shards of the attention, MLP, MoE and recurrent weights (the training
+    path: no cache, no decode); the norms and the residual stream stay
     replicated. ``batch_group``: the MoE's aux loss is over it (a
     data-parallel step's batch group). ``mesh`` serves only the
     sequence-sharded decode.
     """
     aux = 0.0
     new_cache = cache
-    if tp is not None and (kind not in ATTN_KINDS or cache is not None or decode):
-        raise NotImplementedError(f"tensor parallelism covers the forward of the attention "
-                                  f"kinds without a cache, not {kind!r}")
+    if tp is not None and (cache is not None or decode):
+        raise NotImplementedError("tensor parallelism covers the forward without a cache, "
+                                  "not a prefill or a decode step")
 
     if kind in ATTN_KINDS:
         window = cfg.window if kind == "local+mlp" else None
@@ -271,24 +271,27 @@ def block_apply(
             y = apply_mlp(_mlp_cfg(cfg), params["mlp"], h, tp=tp)
         return x + checkpoint_name(y, "tp_mlp_out"), new_cache, aux
 
+    # the recurrent kinds name their mixer's and MLP's outputs as the
+    # attention kinds do, for the "save_tp" policy
     if kind == "rglru+mlp":
         h = apply_norm(cfg.norm_kind, params["norm1"], x)
-        y, new_cache = R.apply_rglru(_rglru_cfg(cfg), params["rglru"], h, cache)
-        x = x + y
+        y, new_cache = R.apply_rglru(_rglru_cfg(cfg), params["rglru"], h, cache, tp=tp)
+        x = x + checkpoint_name(y, "tp_attn_out")
         h = apply_norm(cfg.norm_kind, params["norm2"], x)
-        return x + apply_mlp(_mlp_cfg(cfg), params["mlp"], h), new_cache, aux
+        y = apply_mlp(_mlp_cfg(cfg), params["mlp"], h, tp=tp)
+        return x + checkpoint_name(y, "tp_mlp_out"), new_cache, aux
 
     if kind == "mlstm":
         h = apply_norm(cfg.norm_kind, params["norm1"], x)
         mcfg = _mlstm_cfg(cfg)
         if decode or x.shape[1] < mcfg.chunk:
             mcfg = dataclasses.replace(mcfg, chunk=x.shape[1])
-        y, new_cache = R.apply_mlstm(mcfg, params["mlstm"], h, cache)
-        return x + y, new_cache, aux
+        y, new_cache = R.apply_mlstm(mcfg, params["mlstm"], h, cache, tp=tp)
+        return x + checkpoint_name(y, "tp_attn_out"), new_cache, aux
 
     if kind == "slstm":
         h = apply_norm(cfg.norm_kind, params["norm1"], x)
-        y, new_cache = R.apply_slstm(_slstm_cfg(cfg), params["slstm"], h, cache)
-        return x + y, new_cache, aux
+        y, new_cache = R.apply_slstm(_slstm_cfg(cfg), params["slstm"], h, cache, tp=tp)
+        return x + checkpoint_name(y, "tp_attn_out"), new_cache, aux
 
     raise ValueError(kind)

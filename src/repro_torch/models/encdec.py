@@ -11,21 +11,30 @@ dict per encoder layer], "dec": [one dict per decoder layer]}`` and the
 decoder caches a list of per-layer K/V cache dicts. The cross-attention K/V
 are projected from the encoder output at every call, decode steps included,
 as the reference does.
+
+Under tensor parallelism (``tp=``, a ``sharding.tp.TPContext``: the
+training forward) the encoder layers run ``blocks.block_apply``'s
+attention path, the decoder's self-attention and MLP the same split, and
+the cross-attention's query and K/V projections are column-parallel over
+its heads (the encoder output enters the model group once, before every
+layer's K/V projections) and its output projection row-parallel; the
+heads fall back as ``attention.tp_local`` reads them from the weights.
+The tied logits and the loss are ``transformer``'s, vocab-parallel where
+the vocab splits.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (
     MLPConfig, apply_mlp, apply_norm, init_embedding, init_linear, init_mlp, init_norm,
 )
-from repro_torch.models.remat import maybe_remat
-from repro_torch.models.transformer import embed_tokens, logits_from
+from repro_torch.models.remat import checkpoint_name, maybe_remat
+from repro_torch.models.transformer import cross_entropy, embed_tokens, logits_from
 
 
 def _self_cfg(cfg, causal: bool) -> A.AttnConfig:
@@ -74,92 +83,114 @@ def init_params(cfg, generator: Optional[torch.Generator] = None, device=None):
     return params, specs
 
 
-def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg, params, frames: torch.Tensor, tp=None) -> torch.Tensor:
     """frames: (B, T, d_model) stub embeddings -> encoder states."""
     x = torch.matmul(frames.to(cfg.torch_dtype), params["frontend_proj"])
     positions = torch.arange(x.shape[1], device=x.device)
-    layer = maybe_remat(cfg.remat, lambda x, p: B.block_apply("enc+mlp", cfg, p, x, positions)[0])
+    layer = maybe_remat(cfg.remat, lambda x, p: B.block_apply("enc+mlp", cfg, p, x, positions,
+                                                              tp=tp)[0])
     for p in params["enc"]:
         x = layer(x, p)
     return x
 
 
-def _dec_layer(cfg, p, x, enc_kv, positions, cache=None, decode=False):
+def _local(acfg: A.AttnConfig, params, tp):
+    """(config, weights, split) of an attention on this rank's shards
+    (``attention.tp_local``); the unsharded ones without ``tp``."""
+    return (acfg, params, None) if tp is None else A.tp_local(acfg, params, tp)
+
+
+def cross_attend(cfg, p, h: torch.Tensor, enc_kv, tp=None) -> torch.Tensor:
+    """The cross-attention of ``h`` (the normed decoder stream) over the
+    encoder's keys/values ``enc_kv`` (:func:`_enc_kv`'s for this layer),
+    projected back to the model width (summed over the model group with
+    ``tp``). Chunked online softmax when the decoder side is long. It is
+    neither causal nor windowed, so the query positions do not enter its
+    mask: arange(sq) stands for them."""
+    xcfg, p, split = _local(_self_cfg(cfg, False), p, tp)
+    if split == "heads":
+        h = tp.enter(h)
+    qx = A._proj(h, p["wq"])
+    ek, ev = enc_kv
+    sq = h.shape[1]
+    enc_pos = torch.arange(ek.shape[1], device=h.device)
+    q_pos = torch.arange(sq, device=h.device)
+    if sq * ek.shape[1] > cfg.kv_chunk * cfg.kv_chunk:
+        xout = A.attention_chunked(xcfg, qx, ek, ev, q_pos, enc_pos)
+    else:
+        xout = A.attention_full(xcfg, qx, ek, ev, q_pos, enc_pos)
+    return A.output_proj(xcfg, p, xout, tp, split)
+
+
+def _dec_layer(cfg, p, x, enc_kv, positions, cache=None, decode=False, tp=None):
     scfg = _self_cfg(cfg, True)
-    xcfg = _self_cfg(cfg, False)
     h = apply_norm(cfg.norm_kind, p["norm1"], x)
     if decode:
         q, k1, v1 = A.project_qkv(scfg, p["self"], h, positions[:, None])
         cache = B._append_kv_cache(cache, k1, v1, positions)
         kd, vd = B._cache_kv_views(cfg, cache)
-        attn = A.decode_attention(scfg, q, kd, vd, positions, cache["slot_pos"])
+        attn = A.output_proj(scfg, p["self"],
+                             A.decode_attention(scfg, q, kd, vd, positions, cache["slot_pos"]))
     else:
-        q, k, v = A.project_qkv(scfg, p["self"], h, positions[None, :])
-        if x.shape[1] > cfg.kv_chunk:
-            attn = A.attention_chunked(scfg, q, k, v, positions, positions)
-        else:
-            attn = A.attention_full(scfg, q, k, v, positions, positions)
+        attn, k, v = B.attend(cfg, scfg, p["self"], h, positions, tp)
         if cache is not None:
             cache = B._fill_kv_cache(cache, k, v, positions)
-    x = x + A.output_proj(scfg, p["self"], attn)
+    # the sub-layers' outputs named as block_apply's, for "save_tp"
+    x = x + checkpoint_name(attn, "tp_attn_out")
 
-    # cross attention over the encoder's keys/values, chunked online softmax
-    # when the decoder side is long. It is neither causal nor windowed, so
-    # the query positions do not enter its mask: arange(sq) stands for them
     h = apply_norm(cfg.norm_kind, p["norm_x"], x)
-    qx = A._proj(h, p["cross"]["wq"])
-    ek, ev = enc_kv
-    sq = h.shape[1]
-    enc_pos = torch.arange(ek.shape[1], device=x.device)
-    q_pos = torch.arange(sq, device=x.device)
-    if sq * ek.shape[1] > cfg.kv_chunk * cfg.kv_chunk:
-        xout = A.attention_chunked(xcfg, qx, ek, ev, q_pos, enc_pos)
-    else:
-        xout = A.attention_full(xcfg, qx, ek, ev, q_pos, enc_pos)
-    x = x + A.output_proj(xcfg, p["cross"], xout)
+    x = x + checkpoint_name(cross_attend(cfg, p["cross"], h, enc_kv, tp), "tp_attn_out")
 
     h = apply_norm(cfg.norm_kind, p["norm2"], x)
-    x = x + apply_mlp(MLPConfig(cfg.mlp_kind, cfg.d_model, cfg.d_ff), p["mlp"], h)
-    return x, cache
+    y = apply_mlp(MLPConfig(cfg.mlp_kind, cfg.d_model, cfg.d_ff), p["mlp"], h, tp=tp)
+    return x + checkpoint_name(y, "tp_mlp_out"), cache
 
 
-def _enc_kv(params, enc_out: torch.Tensor) -> list:
-    """Each decoder layer's cross K/V projected from the encoder output."""
-    return [(A._proj(enc_out, p["cross"]["wk"]), A._proj(enc_out, p["cross"]["wv"]))
-            for p in params["dec"]]
+def _enc_kv(cfg, params, enc_out: torch.Tensor, tp=None) -> list:
+    """Each decoder layer's cross K/V projected from the encoder output
+    (with ``tp``, this rank's heads of them: the output enters the model
+    group once for every layer whose heads are split)."""
+    xcfg = _self_cfg(cfg, False)
+    local = [_local(xcfg, p["cross"], tp)[1:] for p in params["dec"]]
+    entered = tp.enter(enc_out) if any(s == "heads" for _, s in local) else enc_out
+    kv = []
+    for p, split in local:
+        e = entered if split == "heads" else enc_out
+        kv.append((A._proj(e, p["wk"]), A._proj(e, p["wv"])))
+    return kv
 
 
 def decoder_forward(cfg, params, tokens: torch.Tensor, enc_out: torch.Tensor,
-                    caches: Optional[list] = None, decode: bool = False, pos=None):
-    """Returns (logits, new caches or None). Decode: tokens (B, 1), pos (B,)."""
-    x = embed_tokens(cfg, params, tokens)
+                    caches: Optional[list] = None, decode: bool = False, pos=None, tp=None):
+    """Returns (logits, new caches or None). Decode: tokens (B, 1), pos (B,).
+    With ``tp``, the training forward on this rank's shards, the logits
+    this rank's vocab range where ``vocab`` is split."""
+    if tp is not None and (caches is not None or decode):
+        raise NotImplementedError("tensor parallelism covers the forward without a cache, "
+                                  "not a prefill or a decode step")
+    x = embed_tokens(cfg, params, tokens, tp)
     positions = pos if decode else torch.arange(x.shape[1], device=x.device)
     # without caches (a training or plain forward) each layer runs under
     # cfg.remat, as the reference's scanned decoder body
     layer = maybe_remat(cfg.remat if caches is None and not decode else "none",
                         lambda x, p, ekv, c: _dec_layer(cfg, p, x, ekv, positions,
-                                                        cache=c, decode=decode))
+                                                        cache=c, decode=decode, tp=tp))
     new_caches = None if caches is None else []
-    for i, (p, ekv) in enumerate(zip(params["dec"], _enc_kv(params, enc_out))):
+    for i, (p, ekv) in enumerate(zip(params["dec"], _enc_kv(cfg, params, enc_out, tp))):
         c = None if caches is None else caches[i]
         x, nc = layer(x, p, ekv, c)
         if caches is not None:
             new_caches.append(nc)
     x = apply_norm(cfg.norm_kind, params["final_norm"], x)
-    return logits_from(cfg, params, x), new_caches
+    return logits_from(cfg, params, x, tp), new_caches
 
 
-def loss_fn(cfg, params, batch: dict, mesh=None):
-    """batch: frames (B,T,D), tokens (B,S), labels (B,S)."""
-    enc_out = encode(cfg, params, batch["frames"])
-    logits, _ = decoder_forward(cfg, params, batch["tokens"], enc_out)
-    labels = batch["labels"]
-    logp = F.log_softmax(logits, dim=-1)
-    # negative labels index from the end, as the reference's take_along_axis
-    idx = torch.where(labels < 0, labels + logits.shape[-1], labels).long()
-    ll = torch.gather(logp, -1, idx[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    ce = -torch.sum(ll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+def loss_fn(cfg, params, batch: dict, mesh=None, tp=None):
+    """batch: frames (B,T,D), tokens (B,S), labels (B,S). With ``tp``,
+    this rank's shards of ``params``."""
+    enc_out = encode(cfg, params, batch["frames"], tp)
+    logits, _ = decoder_forward(cfg, params, batch["tokens"], enc_out, tp=tp)
+    ce = cross_entropy(cfg, params, logits, batch["labels"], tp)
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 

@@ -12,16 +12,51 @@
 
 Every block applies over a full sequence from an optional carried state and
 returns ``(y, new_state)``; a decode step is the same call on one token.
+
+Under tensor parallelism (``tp=``, a ``sharding.tp.TPContext``; the
+training forward, no carried state) each block runs on this rank's shards
+of its ``ffn``-split weights (:func:`tp_split`): the input enters the model
+group, the up-projections are column-parallel, the weights split on their
+input dimension and replicated on their output give partial sums of which
+this rank takes its own part (``tp.own``), and the down-projection is
+row-parallel and leaves the group. The RG-LRU is per channel; the mLSTM
+and sLSTM run this rank's heads where the axis divides them, else every
+head on every rank. No collective runs inside a recurrence's time loop.
+With ``tp=None`` every op is the unsharded one, in the same order.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _normal, dtype_scalar, init_linear
+
+
+def tp_split(tp, params: dict, dims: dict, full: int, n_heads: Optional[int] = None):
+    """How a recurrent block runs on this rank's shards, read from their
+    local shapes (``dims``: each weight's dimension of width ``full`` that
+    the rules split over "model" as ``ffn``): None without ``tp`` or with
+    every such dimension whole (today's ops); ``"channels"`` (the RG-LRU,
+    ``n_heads`` None), ``"heads"`` (the axis divides ``n_heads``: this
+    rank's heads, the contiguous channels of its ``ffn`` shard) or
+    ``"whole"`` (every head on every rank) with every one split evenly;
+    any other layout is refused."""
+    if tp is None:
+        return None
+    local = {params[k].shape[d] for k, d in dims.items()}
+    if local == {full}:
+        return None
+    if full % tp.size or local != {full // tp.size}:
+        raise NotImplementedError(
+            f"recurrent block: widths {sorted(local)} of {full} are not one even split over "
+            f"{tp.size} model ranks")
+    if n_heads is None:
+        return "channels"
+    return "heads" if n_heads % tp.size == 0 else "whole"
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -128,15 +163,29 @@ def _rglru_scan(a: torch.Tensor, bx: torch.Tensor, h0=None) -> torch.Tensor:
     return h
 
 
-def apply_rglru(cfg: RGLRUConfig, params, x: torch.Tensor, state=None):
-    """x: (B, S, D). Returns (y, new_state dict)."""
+RGLRU_TP_DIMS = {"wx": 1, "wy": 1, "conv": 1, "lambda": 0, "w_a": 0, "w_i": 0, "wo": 0}
+
+
+def apply_rglru(cfg: RGLRUConfig, params, x: torch.Tensor, state=None, tp=None):
+    """x: (B, S, D). Returns (y, new_state dict). With ``tp``, on this
+    rank's ``d_rnn`` channels: the gates' products with ``w_a`` and
+    ``w_i`` are summed over the model group and this rank takes its
+    channels of them; ``y`` is summed over the group."""
+    split = tp_split(tp, params, RGLRU_TP_DIMS, cfg.d_rnn)
+    if split:
+        x = tp.enter(x)
     gate_y = F.gelu(torch.matmul(x, params["wy"]), approximate="tanh")
     u = torch.matmul(x, params["wx"])
     conv_state = None if state is None else state["conv"]
     u, conv_state = _causal_depthwise_conv(u, params["conv"], conv_state)
 
-    r = torch.sigmoid(torch.matmul(u, params["w_a"]).float())
-    i = torch.sigmoid(torch.matmul(u, params["w_i"]).float())
+    if split:
+        ra, ia = tp.own(torch.cat([torch.matmul(u, params["w_a"]),
+                                   torch.matmul(u, params["w_i"])], dim=-1), groups=2).chunk(2, -1)
+    else:
+        ra, ia = torch.matmul(u, params["w_a"]), torch.matmul(u, params["w_i"])
+    r = torch.sigmoid(ra.float())
+    i = torch.sigmoid(ia.float())
     log_a = -cfg.c_const * r * _softplus(params["lambda"])
     a = torch.exp(log_a)
     # input normalization keeps |h| bounded (Griffin eq. 4)
@@ -147,6 +196,8 @@ def apply_rglru(cfg: RGLRUConfig, params, x: torch.Tensor, state=None):
     h = _rglru_scan(a, bx, h0)
     y = h.to(x.dtype) * gate_y
     y = torch.matmul(y, params["wo"])
+    if split:
+        y = tp.leave(y)
     return y, {"h": h[:, -1], "conv": conv_state}
 
 
@@ -240,22 +291,42 @@ def _mlstm_chunk_scan(q, k, v, log_i, log_f, state: dict):
     return h_out, {"C": C_new, "n": n_new, "m": m_new}
 
 
-def apply_mlstm(cfg: MLSTMConfig, params, x: torch.Tensor, state=None):
-    """x: (B, S, D) -> (y, state). The sequence is processed in chunks."""
+MLSTM_TP_DIMS = {"w_up": 1, "w_gate": 1, "wq": 0, "wk": 0, "wv": 0, "w_if": 0, "w_down": 0}
+
+
+def apply_mlstm(cfg: MLSTMConfig, params, x: torch.Tensor, state=None, tp=None):
+    """x: (B, S, D) -> (y, state). The sequence is processed in chunks.
+    With ``tp``, ``q``, ``k``, ``v`` and the gate logits are partial sums,
+    added in one all-reduce: this rank's heads take their channels and
+    their halves of ``w_if``'s ``[i | f]`` logits; where the axis does not
+    divide the heads, every head runs on every rank and this rank takes
+    its channels of ``h``. ``y`` is summed over the group."""
     b, s, _ = x.shape
+    split = tp_split(tp, params, MLSTM_TP_DIMS, cfg.d_inner, cfg.n_heads)
+    if split:
+        x = tp.enter(x)
     up = torch.matmul(x, params["w_up"])
     gate = F.silu(torch.matmul(x, params["w_gate"]))
-    q = torch.matmul(up, params["wq"])
-    k = torch.matmul(up, params["wk"])
-    v = torch.matmul(up, params["wv"])
-    gates = torch.matmul(up, params["w_if"]).float()
-    log_i = _log_sigmoid(gates[..., :cfg.n_heads])        # (B,S,H)
-    log_f = _log_sigmoid(gates[..., cfg.n_heads:])
-
-    hd = cfg.head_dim
+    nh, hd, di = cfg.n_heads, cfg.head_dim, cfg.d_inner
+    if split:
+        parts = [torch.matmul(up, params[k]) for k in ("wq", "wk", "wv", "w_if")]
+        whole = tp.enter(tp.leave(torch.cat(parts, dim=-1)))
+        qkv, gates = whole[..., :3 * di], whole[..., 3 * di:]
+        if split == "heads":
+            qkv, gates = tp.take(qkv, groups=3), tp.take(gates, groups=2)
+            nh, di = nh // tp.size, di // tp.size
+        q, k, v = qkv.chunk(3, dim=-1)
+        gates = gates.float()
+    else:
+        q = torch.matmul(up, params["wq"])
+        k = torch.matmul(up, params["wk"])
+        v = torch.matmul(up, params["wv"])
+        gates = torch.matmul(up, params["w_if"]).float()
+    log_i = _log_sigmoid(gates[..., :nh])                 # (B,S,H)
+    log_f = _log_sigmoid(gates[..., nh:])
 
     def heads(t):  # (B,S,di) -> (B,H,S,hd)
-        return t.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
+        return t.reshape(b, s, nh, hd).transpose(1, 2)
 
     q, k, v = heads(q), heads(k), heads(v)
     log_i = log_i.transpose(1, 2)
@@ -271,7 +342,7 @@ def apply_mlstm(cfg: MLSTMConfig, params, x: torch.Tensor, state=None):
         log_f = F.pad(log_f, (0, pad), value=0.0)
 
     if state is None:
-        state = mlstm_state(cfg, b, x.device)
+        state = mlstm_state(cfg, b, x.device, n_heads=nh)
     hs = []
     for c0 in range(0, s + pad, ck):
         sl = slice(c0, c0 + ck)
@@ -279,17 +350,23 @@ def apply_mlstm(cfg: MLSTMConfig, params, x: torch.Tensor, state=None):
                                      log_i[:, :, sl], log_f[:, :, sl], state)
         hs.append(h)
     h = torch.cat(hs, dim=2)[:, :, :s]
-    h = h.transpose(1, 2).reshape(b, s, cfg.d_inner).to(x.dtype)
+    h = h.transpose(1, 2).reshape(b, s, di).to(x.dtype)
+    if split == "whole":
+        h = tp.take(h)
     y = torch.matmul(h * gate, params["w_down"])
+    if split:
+        y = tp.leave(y)
     return y, state
 
 
-def mlstm_state(cfg: MLSTMConfig, batch: int, device) -> dict:
+def mlstm_state(cfg: MLSTMConfig, batch: int, device, n_heads: Optional[int] = None) -> dict:
+    """The zero state of ``n_heads`` heads (default: all of them)."""
     hd = cfg.head_dim
+    nh = cfg.n_heads if n_heads is None else n_heads
     return {
-        "C": torch.zeros((batch, cfg.n_heads, hd, hd), dtype=torch.float32, device=device),
-        "n": torch.zeros((batch, cfg.n_heads, hd), dtype=torch.float32, device=device),
-        "m": torch.full((batch, cfg.n_heads), -1e30, dtype=torch.float32, device=device),
+        "C": torch.zeros((batch, nh, hd, hd), dtype=torch.float32, device=device),
+        "n": torch.zeros((batch, nh, hd), dtype=torch.float32, device=device),
+        "m": torch.full((batch, nh), -1e30, dtype=torch.float32, device=device),
     }
 
 
@@ -359,25 +436,52 @@ def _slstm_cell(r_gates: torch.Tensor, di: int, xg: torch.Tensor, carry: dict) -
     return {"h": h_new, "c": c_new, "n": n_new, "m": m_new}
 
 
-def apply_slstm(cfg: SLSTMConfig, params, x: torch.Tensor, state=None):
+SLSTM_TP_DIMS = {"w_up": 1, "w_gates": 0, "w_down": 0}
+
+
+def apply_slstm(cfg: SLSTMConfig, params, x: torch.Tensor, state=None, tp=None):
+    """With ``tp``, the input gates ``up @ w_gates`` are a partial sum laid
+    out ``[z | i | f | o]``: this rank's heads take their channels of each
+    of the four with their blocks of the replicated ``r_gates``; where the
+    axis does not divide the heads, every rank runs the whole recurrence
+    and takes its channels of ``h``. ``r_gates`` enters the model group
+    once, before the time loop. ``y`` is summed over the group."""
     b, s, _ = x.shape
     di = cfg.d_inner
+    split = tp_split(tp, params, SLSTM_TP_DIMS, di, cfg.n_heads)
+    if split:
+        x = tp.enter(x)
     up = torch.matmul(x, params["w_up"])
-    xg = torch.matmul(up, params["w_gates"]).float()
+    xg = torch.matmul(up, params["w_gates"])
+    if split == "heads":
+        xg = tp.own(xg, groups=4)
+        di = di // tp.size
+    elif split:
+        xg = tp.enter(tp.leave(xg))
+    xg = xg.float()
     if state is None:
-        state = slstm_state(cfg, b, x.device)
+        state = slstm_state(cfg, b, x.device, width=di)
     r_gates = params["r_gates"].to(state["h"].dtype)
+    if split == "heads":
+        r_gates = tp.part(r_gates, dim=0)
+    elif split:
+        r_gates = tp.enter(r_gates)
     hs = []
     for t in range(s):
         state = _slstm_cell(r_gates, di, xg[:, t], state)
         hs.append(state["h"])
     h = torch.stack(hs, dim=1).to(x.dtype)
+    if split == "whole":
+        h = tp.take(h)
     y = torch.matmul(h, params["w_down"])
+    if split:
+        y = tp.leave(y)
     return y, state
 
 
-def slstm_state(cfg: SLSTMConfig, batch: int, device) -> dict:
-    shape = (batch, cfg.d_inner)
+def slstm_state(cfg: SLSTMConfig, batch: int, device, width: Optional[int] = None) -> dict:
+    """The zero state of ``width`` channels (default: ``d_inner``)."""
+    shape = (batch, cfg.d_inner if width is None else width)
     out = {k: torch.zeros(shape, dtype=torch.float32, device=device) for k in ("h", "c", "n")}
     out["m"] = torch.full(shape, -1e30, dtype=torch.float32, device=device)
     return out

@@ -168,6 +168,14 @@ def loss_fn(cfg, params, batch: dict, mesh=None, tp=None, batch_group=None):
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:  # vision prefix: score text positions only
         logits = logits[:, -labels.shape[1]:]
+    ce = cross_entropy(cfg, params, logits, labels, tp)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def cross_entropy(cfg, params, logits: torch.Tensor, labels: torch.Tensor, tp=None):
+    """The mean next-token cross entropy of ``labels`` (negative ones
+    masked) under ``logits``; with ``tp`` and ``vocab`` split, from this
+    rank's range of the logits (:func:`_vocab_parallel_ll`)."""
     # negative labels index from the end (of the whole vocab), as the
     # reference's take_along_axis
     if _vocab_split(cfg, params, tp):
@@ -178,8 +186,7 @@ def loss_fn(cfg, params, batch: dict, mesh=None, tp=None, batch_group=None):
         idx = torch.where(labels < 0, labels + logits.shape[-1], labels).long()
         ll = torch.gather(logp, -1, idx[..., None])[..., 0]
     mask = (labels >= 0).float()
-    ce = -torch.sum(ll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
-    return ce + aux, {"ce": ce, "aux": aux}
+    return -torch.sum(ll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
 def init_caches(cfg, batch: int, max_seq: int, device) -> list[dict]:

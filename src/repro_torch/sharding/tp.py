@@ -19,6 +19,19 @@ The two conjugate operators of the Megatron layout, as autograd functions:
   rank then holds the same tensor, and differentiates its own replica of
   the loss.
 
+A product of an input split over the group with a weight split on its
+input dimension (the recurrent blocks' ``("ffn", None)`` weights) is a
+partial sum of a whole tensor, of which the per-channel or per-head work
+downstream wants only this rank's part. :meth:`TPContext.own` takes it:
+the sum (:func:`leave`), then :func:`enter`, then the slice. ``leave``
+then the slice alone would be wrong in the backward: each rank would hand
+its partial product only its own part's gradient. :meth:`TPContext.part`
+is this rank's part of a tensor that is whole on every rank (``enter``,
+then the slice), and :meth:`TPContext.take` the slice alone, for a tensor
+whose gradient is already summed upstream. Each takes its part as
+``groups`` contiguous blocks where a dimension stacks several fields (the
+``(z, i, f, o)`` gates of the sLSTM).
+
 The residual stream, the norms and every replicated weight's gradient are
 then the same on every model rank. The models take the context as a
 ``tp=`` keyword (None: a model axis of one rank, today's ops in today's
@@ -108,6 +121,27 @@ class TPContext:
 
     def leave(self, x: torch.Tensor) -> torch.Tensor:
         return leave(x, self.group)
+
+    def take(self, x: torch.Tensor, dim: int = -1, groups: int = 1) -> torch.Tensor:
+        """This rank's ``1/size`` of each of ``groups`` equal contiguous
+        blocks of ``x``'s ``dim``, concatenated (a slice: no collective)."""
+        n = x.shape[dim] // (groups * self.size)
+        if groups == 1:
+            return x.narrow(dim, self.offset(n), n)
+        blocks = x.unflatten(dim, (groups, x.shape[dim] // groups))
+        d = dim % x.dim() + 1
+        return blocks.narrow(d, self.offset(n), n).flatten(d - 1, d)
+
+    def part(self, x: torch.Tensor, dim: int = -1, groups: int = 1) -> torch.Tensor:
+        """This rank's part (:meth:`take`) of ``x``, whole on every rank:
+        its gradient, this rank's part of the whole one, summed over the
+        group."""
+        return self.take(self.enter(x), dim, groups)
+
+    def own(self, partial: torch.Tensor, dim: int = -1, groups: int = 1) -> torch.Tensor:
+        """This rank's part (:meth:`take`) of the sum over the group of
+        ``partial``; the gradient of ``partial`` is the whole sum's."""
+        return self.part(self.leave(partial), dim, groups)
 
     def offset(self, local: int) -> int:
         """The first global index of this rank's ``local`` entries of a

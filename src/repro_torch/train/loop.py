@@ -35,9 +35,8 @@ its shards of the parameters split over "model" (``m``/``v`` too, ZeRO's
 parts taken from the shard), the models run with the ``tp`` context, the
 clip's norm is the full gradient's (squares of split leaves summed over
 the model group, replicated leaves counted once) and int8 compression
-takes each tensor's scale over the model group as well. The dense and MoE
-families train so; the recurrent and encoder-decoder ones are refused
-there. ``mesh=None`` is one rank with no process group.
+takes each tensor's scale over the model group as well. Every family
+trains so. ``mesh=None`` is one rank with no process group.
 
 The parameters are a tree of tensors in the port's layout
 (``models.transformer``); a step draws its own leaves that require grad
@@ -300,15 +299,6 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
     batch)``; manual-dp: ``step(params, opt_state, err, batch)``; ``batch``
     is this rank's slice of the global batch."""
     cfg = model.cfg
-    sizes = axis_sizes(mesh)
-    if sizes.get("model", 1) > 1:
-        kinds = (["enc+mlp"] if cfg.arch_type == "encdec" else
-                 sorted({k for k in cfg.pattern if k in ("rglru+mlp", "mlstm", "slstm")}))
-        if kinds:
-            raise NotImplementedError(
-                f"training over a 'model' axis of {sizes['model']}: the layer kinds "
-                f"{', '.join(kinds)} of {cfg.name} have no tensor parallelism yet; "
-                "use a mesh with model=1")
     shapes, logical, param_sh = build_shardings(model, mesh, rules)
     opt_sh = _opt_shardings(mesh, rules, shapes, logical, param_sh, tcfg.zero1)
     ba, dp = _dp(mesh)

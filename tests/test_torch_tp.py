@@ -9,7 +9,11 @@ numpy weights and batches, and the tests hold:
 * the losses to ``LOSS_TOL`` (and the MoE's aux loss, and its dropped
   share of (token, choice) pairs exactly);
 * the parameters gathered over the mesh by the trajectory rule
-  (``_excused_ok`` of ``tests.test_torch_train``);
+  (``_excused_ok`` of ``tests.test_torch_train``), an entry clear of
+  rounding where v is and where its first step's gradient was (|g| at the
+  first step, sqrt(v_1 / (1 - b2)) of the reference's v: a gradient within
+  rounding of zero there moves an entry by a fraction of lr that rounding
+  decides, whatever v says after);
 * each rank's ``m`` (its shard over "model", its ZeRO part over the batch
   axes) against the reference's ``addressable_shards`` on the matching
   device, rtol 1e-3;
@@ -68,6 +72,10 @@ CASES = {
     "olmo_manual": ("olmo-1b", (2, 2), DM, dict(mode="manual-dp", grad_compress=True), 1),
     "olmo_pod": ("olmo-1b", (2, 2, 1), ("pod", "data", "model"),
                  dict(zero1=True, microbatches=2), 3),
+    # the recurrent and encoder-decoder families over "model"
+    "rglru_zero1": ("recurrentgemma-2b", (2, 2), DM, dict(zero1=True, microbatches=2), 2),
+    "xlstm_tp4": ("xlstm-350m", (1, 4), DM, dict(microbatches=2), 1),
+    "whisper_mb4": ("whisper-tiny", (2, 2), DM, dict(microbatches=4), 1),
 }
 # per module case: what runs, the arch (config overrides), the model axis
 MODULES = {
@@ -80,7 +88,22 @@ MODULES = {
     "moe_experts_shared": ("moe", "qwen2-moe-a2.7b", {}, 2),
     "moe_ffn_split": ("moe", "qwen2-moe-a2.7b",
                       dict(moe_pad_to=None, moe_shared=0, moe_capacity=1.0), 4),
+    "rglru_ffn2": ("rglru", "recurrentgemma-2b", {}, 2),
+    "rglru_ffn4": ("rglru", "recurrentgemma-2b", {}, 4),
+    "mlstm_heads2": ("mlstm", "xlstm-350m", {}, 2),
+    "mlstm_whole": ("mlstm", "xlstm-350m", dict(n_heads=2), 4),   # 2 heads over 4 ranks
+    "slstm_heads4": ("slstm", "xlstm-350m", {}, 4),
+    "slstm_whole": ("slstm", "xlstm-350m", dict(n_heads=2), 4),
+    "cross_attn_heads": ("cross", "whisper-tiny", {}, 2),
 }
+# tp.own on a model axis of m ranks, its part as `groups` blocks: (m, groups)
+OWN = [(2, 1), (2, 2), (2, 4), (4, 1), (4, 2), (4, 4)]
+# the all_reduce calls of one block's forward and backward, at two lengths
+# (the mLSTM's chunk is 8: one chunk, then three): (module case, lengths)
+LOOP_COLLECTIVES = {"mlstm_heads2": (8, 24), "mlstm_whole": (8, 24),
+                    "slstm_heads4": (8, 24), "slstm_whole": (8, 24)}
+# remat "full" and "save_tp" against "none" under tensor parallelism on (2, 2)
+REMAT_ARCHS = ("qwen2-moe-a2.7b", "recurrentgemma-2b", "xlstm-350m", "whisper-tiny")
 # a data-parallel step fed rows laid out for another microbatch count than
 # its own: arch, TrainConfig fields, the dataset's microbatches
 REFUSE = {
@@ -105,11 +128,11 @@ RANK_CODE = textwrap.dedent("""
     from repro_torch.configs import get_reduced
     from repro_torch.data.tokens import TokenDataset, TokenDatasetConfig
     from repro_torch.interop import lm_params_from_arrays, reference_layout
-    from repro_torch.models import blocks as B, moe as MO
+    from repro_torch.models import blocks as B, encdec as E, moe as MO, recurrent as R
     from repro_torch.models.model import build_model
     from repro_torch.models.layers import apply_mlp, tree_leaves, tree_map
     from repro_torch.sharding.rules import default_rules
-    from repro_torch.sharding.tp import gather_params, shard_params
+    from repro_torch.sharding.tp import TPContext, gather_params, shard_params
     from repro_torch.train import optim
     from repro_torch.train.grad_compress import init_error_tree
     from repro_torch.train.loop import (
@@ -132,7 +155,8 @@ RANK_CODE = textwrap.dedent("""
     def batches(cfg, mesh, nm):
         return TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=16, global_batch=8,
                                                seed=0), prefix_len=cfg.prefix_len,
-                            d_model=cfg.d_model, mesh=mesh, device="cpu", microbatches=nm)
+                            d_model=cfg.d_model, frames=cfg.arch_type == "encdec", mesh=mesh,
+                            device="cpu", microbatches=nm)
     def dropped(model, params, batch, tp):
         keeps = []
         route = MO.route
@@ -235,20 +259,46 @@ RANK_CODE = textwrap.dedent("""
 
     # remat under tensor parallelism: "full" and "save_tp" recompute the
     # forward's collectives in the backward, and keep the bits of "none"
-    grads = {}
-    for remat in ("none", "full", "save_tp"):
-        cfg = dataclasses.replace(get_reduced("qwen2-moe-a2.7b"), remat=remat)
-        model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
-        mesh = mesh_of((2, 2), ("data", "model"))
-        _, sh = make_train_step(model, mesh, default_rules(mesh), TrainConfig())
-        leaves = tree_map(lambda t: t.detach().requires_grad_(True),
-                          shard_params(tree_map(lambda t: t.detach(), model.params), sh["tp"]))
-        batch = batches(cfg, mesh, 1)(0)
-        loss, _ = model.loss_fn(batch, params=leaves, tp=sh["tp"])
-        grads[remat] = [loss.detach()] + list(torch.autograd.grad(
-            loss, tree_leaves(leaves), allow_unused=True, materialize_grads=True))
-    out["remat.same_bits"] = np.array(all(
-        torch.equal(a, b) for r in ("full", "save_tp") for a, b in zip(grads[r], grads["none"])))
+    for arch in REMAT_ARCHS:
+        grads = {}
+        for remat in ("none", "full", "save_tp"):
+            cfg = dataclasses.replace(get_reduced(arch), remat=remat)
+            model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+            mesh = mesh_of((2, 2), ("data", "model"))
+            _, sh = make_train_step(model, mesh, default_rules(mesh), TrainConfig())
+            leaves = tree_map(lambda t: t.detach().requires_grad_(True),
+                              shard_params(tree_map(lambda t: t.detach(), model.params), sh["tp"]))
+            batch = batches(cfg, mesh, 1)(0)
+            loss, _ = model.loss_fn(batch, params=leaves, tp=sh["tp"])
+            grads[remat] = [loss.detach()] + list(torch.autograd.grad(
+                loss, tree_leaves(leaves), allow_unused=True, materialize_grads=True))
+        out[f"remat.{arch}.same_bits"] = np.array(all(
+            torch.equal(a, b) for r in ("full", "save_tp")
+            for a, b in zip(grads[r], grads["none"])))
+
+    # tp.own against the unsharded product u @ W (W split on its rows):
+    # the value, and the gradients of W and u; and the slice of the sum
+    # without the enter, whose gradient of W is wrong
+    for m, groups in OWN:
+        mesh = mesh_of((RANKS // m, m), ("data", "model"))
+        tpc = TPContext(mesh.get_group("model"), mesh.get_local_rank("model"), m, None)
+        g = torch.Generator().manual_seed(6)
+        u, W = torch.randn((2, 5, 16), generator=g), torch.randn((16, 32), generator=g)
+        w = torch.randn((2, 5, 32), generator=g)
+        ul, Wl = u.clone().requires_grad_(True), W.clone().requires_grad_(True)
+        want = torch.matmul(ul, Wl)
+        gW, gu = torch.autograd.grad((want * w).sum(), (Wl, ul))
+        rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+        res = []
+        for form in ("own", "slice_of_sum"):
+            ul, Wl = u.clone().requires_grad_(True), tpc.take(W, 0).clone().requires_grad_(True)
+            partial = torch.matmul(tpc.part(ul), Wl)
+            got = (tpc.own(partial, groups=groups) if form == "own"
+                   else tpc.take(tpc.leave(partial), groups=groups))
+            dW, du = torch.autograd.grad((got * tpc.take(w, groups=groups)).sum(), (Wl, ul))
+            res += [rel(got, tpc.take(want.detach(), groups=groups)), rel(dW, tpc.take(gW, 0)),
+                    rel(du, gu)]
+        out[f"own.{m}.{groups}"] = np.array(res)
 
     # each module under tensor parallelism against the unsharded port
     def sub(tree, path):
@@ -278,6 +328,18 @@ RANK_CODE = textwrap.dedent("""
         elif what == "mlp":
             path = ("layers", 0, "mlp")
             f = lambda p, x, tp: (apply_mlp(B._mlp_cfg(cfg), p, x, tp) * w).sum()
+        elif what in ("rglru", "mlstm", "slstm"):
+            path = ("layers", [k.split("+")[0] for k in cfg.pattern].index(what), what)
+            run = {"rglru": (R.apply_rglru, B._rglru_cfg(cfg)),
+                   "mlstm": (R.apply_mlstm, B._mlstm_cfg(cfg)),
+                   "slstm": (R.apply_slstm, B._slstm_cfg(cfg))}[what]
+            wl = torch.randn((2, 32, cfg.d_model), generator=g)  # up to 32 tokens
+            f = lambda p, x, tp, run=run, wl=wl: (
+                run[0](run[1], p, x, tp=tp)[0] * wl[:, :x.shape[1]]).sum()
+        elif what == "cross":  # the encoder output stands in as x reversed
+            path = ("dec", 0, "cross")
+            f = lambda p, x, tp: (E.cross_attend(cfg, p, x, E._enc_kv(
+                cfg, {"dec": [{"cross": p}]}, x.flip(1), tp)[0], tp) * w).sum()
         else:
             path = ("layers", 0, "moe")
             mcfg = B._moe_cfg(cfg)
@@ -310,6 +372,24 @@ RANK_CODE = textwrap.dedent("""
         out[f"mod.{name}.grad_rel"] = np.array(rel)
         out[f"mod.{name}.sharded"] = np.array(sum(d is not None for d in tree_leaves(
             sub(tp.dims, path))))
+        if name in LOOP_COLLECTIVES:  # the all_reduce calls of a forward and backward
+            counts = []
+            p = shard_params(sub(full, path), dataclasses.replace(tp, dims=sub(tp.dims, path)))
+            reduce_ = dist.all_reduce
+            for s in LOOP_COLLECTIVES[name]:
+                calls = []
+                def counting(*a, **k):
+                    calls.append(1)
+                    return reduce_(*a, **k)
+                leaves = tree_map(lambda t: t.detach().requires_grad_(True), p)
+                xi = torch.randn((2, s, cfg.d_model), generator=g).requires_grad_(True)
+                dist.all_reduce = counting
+                try:
+                    torch.autograd.grad(f(leaves, xi, tp), tree_leaves(leaves) + [xi])
+                finally:
+                    dist.all_reduce = reduce_
+                counts.append(len(calls))
+            out[f"loop.{name}"] = np.array(counts)
     np.savez(os.path.join(tmp, f"port{rank}.npz"), **out)
     dist.destroy_process_group()
 """)
@@ -336,7 +416,8 @@ REF_CODE = textwrap.dedent("""
         params = jax.tree.map(lambda a, s: jnp.asarray(a, s.dtype), tree, shapes)
         model = RM.build_model(cfg)
         ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=16, global_batch=8,
-                                             seed=0))
+                                             seed=0), frames=cfg.arch_type == "encdec",
+                          d_model=cfg.d_model)
         if cfg.moe_experts:  # the first batch's routing at the initial weights
             seen, one_hot = [], jax.nn.one_hot
             def recording(idx, n, **kw):
@@ -358,6 +439,7 @@ REF_CODE = textwrap.dedent("""
             opt = jax.jit(optim.init_opt_state, out_shardings=sh["opt"])(params)
             err = init_error_tree(params)
             losses, aux = [], []
+            b2 = optim.AdamWConfig(**OPT).b2
             for s in range(steps):
                 if fields.get("mode") == "manual-dp":
                     params, opt, err, met = step(params, opt, err, ds(s))
@@ -365,6 +447,9 @@ REF_CODE = textwrap.dedent("""
                     params, opt, met = step(params, opt, ds(s))
                 losses.append(float(met["loss"]))
                 aux.append(float(met["aux"]) if "aux" in met else 0.0)
+                if s == 0:  # each entry's |g| at the first step, read off v_1
+                    for i, a in enumerate(jax.tree.leaves(opt["v"])):
+                        out[f"{case}.gfirst{i}"] = np.sqrt(np.asarray(a) / (1 - b2))
         out[case + ".loss"] = np.array(losses)
         out[case + ".aux"] = np.array(aux)
         for key, t in (("p", params), ("m", opt["m"]), ("v", opt["v"])):
@@ -385,7 +470,8 @@ REF_CODE = textwrap.dedent("""
 
 def _consts() -> str:
     return (f"CASES = {CASES!r}\nMODULES = {MODULES!r}\nCKPT = {CKPT!r}\nOPT = {OPT!r}\n"
-            f"REFUSE = {REFUSE!r}\n"
+            f"REFUSE = {REFUSE!r}\nOWN = {OWN!r}\nLOOP_COLLECTIVES = {LOOP_COLLECTIVES!r}\n"
+            f"REMAT_ARCHS = {REMAT_ARCHS!r}\n"
             f"RANKS = {RANKS}\nCKPT_ARCH = {CKPT_ARCH!r}\n")
 
 
@@ -454,8 +540,10 @@ def test_steps_match_reference(tp_ranks, case):
         np.testing.assert_allclose(r[case + ".loss"], ref[case + ".loss"], **LOSS_TOL)
         np.testing.assert_allclose(r[case + ".aux"], ref[case + ".aux"], rtol=1e-5, atol=1e-9)
         assert _n(r, case) == n
+        # an entry is clear where v is and where its first step's |g| was
         _excused_ok([r[f"{case}.p{i}"] for i in range(n)], [ref[f"{case}.p{i}"] for i in range(n)],
-                    [ref[f"{case}.v{i}"] for i in range(n)], steps)
+                    [np.minimum(ref[f"{case}.v{i}"], ref[f"{case}.gfirst{i}"] ** 2)
+                     for i in range(n)], steps)
         for i in range(n):
             np.testing.assert_array_equal(r[f"{case}.p{i}"], ranks[0][f"{case}.p{i}"])
 
@@ -585,7 +673,42 @@ def test_remat_keeps_the_bits_under_tensor_parallelism(tp_ranks):
     "full" and "save_tp" (the forward's collectives recomputed in the
     backward) the bits of "none", on every rank."""
     _, ranks, _ = tp_ranks
-    assert all(bool(r["remat.same_bits"]) for r in ranks)
+    assert all(bool(r["remat.qwen2-moe-a2.7b.same_bits"]) for r in ranks)
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS[1:])
+def test_remat_keeps_the_bits_recurrent_and_encdec(tp_ranks, arch):
+    """The recurrent and encoder-decoder families on (2, 2): remat "full"
+    and "save_tp" give the loss and every gradient of "none", on every
+    rank (their partial sums, and the blocks' sums over the group,
+    recomputed in the backward)."""
+    _, ranks, _ = tp_ranks
+    assert all(bool(r[f"remat.{arch}.same_bits"]) for r in ranks)
+
+
+@pytest.mark.parametrize("m,groups", OWN)
+def test_own_gradient_matches_unsharded(tp_ranks, m, groups):
+    """``tp.own`` of the partial products of u @ W (W split on its rows
+    over m ranks), its part as ``groups`` blocks: the value and the
+    gradients of W and u those of the unsharded product within
+    MODULE_RTOL; the slice of the sum without the enter gets the gradient
+    of W wrong."""
+    _, ranks, _ = tp_ranks
+    for r in ranks:
+        fwd, dW, du, wrong_fwd, wrong_dW, _ = r[f"own.{m}.{groups}"]
+        assert max(fwd, dW, du, wrong_fwd) <= MODULE_RTOL, r[f"own.{m}.{groups}"]
+        assert wrong_dW > 0.1
+
+
+@pytest.mark.parametrize("name", list(LOOP_COLLECTIVES))
+def test_no_collective_in_the_time_loop(tp_ranks, name):
+    """One mLSTM or sLSTM block's forward and backward under tensor
+    parallelism makes as many all_reduce calls at either length: none
+    runs inside the recurrence's time loop (or the mLSTM's chunk loop)."""
+    _, ranks, _ = tp_ranks
+    for r in ranks:
+        short, long_ = r[f"loop.{name}"]
+        assert 0 < short == long_, r[f"loop.{name}"]
 
 
 def test_init_train_state_shards_the_one_rank_draw(tp_ranks):
@@ -619,22 +742,21 @@ def test_module_matches_unsharded(tp_ranks, name):
         assert ranks[0][f"mod.{name}.dropped"] > 0
 
 
-SEVEN = ("olmo-1b", "deepseek-7b", "gemma-7b", "gemma3-4b", "internvl2-76b", "qwen2-moe-a2.7b",
-         "granite-moe-1b-a400m")
-
-
-@pytest.mark.parametrize("arch", SEVEN)
+@pytest.mark.parametrize("arch", PC.ALL_ARCHS)
 def test_published_configs_shard_on_every_model_axis(arch):
-    """The seven dense and MoE configs at their published widths, on model
-    axes of 2, 4 and 16: every rank's shards (meta tensors) take a layout
-    the models run (the rules' fallbacks included: replicated KV heads
-    under split query heads, replicated heads under a split output
-    projection, a replicated vocab), and the shards tile each leaf."""
+    """The ten configs at their published widths, on model axes of 2, 4
+    and 16: every rank's shards (meta tensors) take a layout the models
+    run (the rules' fallbacks included: replicated KV heads under split
+    query heads, replicated heads under a split output projection, a
+    replicated vocab; a recurrent block's ``ffn`` split evenly, its heads
+    this rank's or all of them), and the shards tile each leaf."""
     import dataclasses
 
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.models import attention as A
     from repro_torch.models import blocks as B
+    from repro_torch.models import encdec as E
+    from repro_torch.models import recurrent as R
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.models.model import abstract_params
     from repro_torch.models.transformer import layer_kinds
@@ -663,19 +785,47 @@ def test_published_configs_shard_on_every_model_axis(arch):
                 and t.shape[:d] + t.shape[d + 1:] == f.shape[:d] + f.shape[d + 1:]),
                 local, full, dims)
             assert all(tree_leaves(tiles))
-            for kind, p in zip(layer_kinds(model.cfg), local["layers"]):
+            if cfg.arch_type == "encdec":
+                attns = ([("enc+mlp", p["attn"]) for p in local["enc"]]
+                         + [(k, p[k]) for p in local["dec"] for k in ("self", "cross")])
+                layers = []
+            else:
+                layers = list(zip(layer_kinds(cfg), local["layers"]))
+                attns = [(k, p["attn"]) for k, p in layers if k in B.ATTN_KINDS]
+            for kind, p in attns:
                 window = cfg.window if kind == "local+mlp" else None
-                acfg, ap, split = A.tp_local(B._attn_cfg(cfg, window), p["attn"], tp)
+                acfg = (E._self_cfg(cfg, kind != "cross") if kind in ("self", "cross")
+                        else B._attn_cfg(cfg, window))
+                acfg, ap, split = A.tp_local(acfg, p, tp)
                 assert acfg.n_heads % acfg.n_kv == 0 and ap["wk"].shape[1] == acfg.n_kv
-                seen.add((m, split, p["attn"]["wk"].shape[1] < cfg.n_kv))
+                seen.add((m, split, p["wk"].shape[1] < cfg.n_kv))
+            for kind, p in layers:
                 if kind == "attn+moe":
                     e_loc, f_loc = p["moe"]["wi"].shape[0], p["moe"]["wi"].shape[2]
                     e = cfg.moe_pad_to or cfg.moe_experts  # experts, or each one's ffn, split
                     assert (e_loc * m == e) != (f_loc * m == cfg.moe_d_expert)
-    assert {s for _, s, _ in seen} <= {"heads", "out"}
-    # the published fallbacks at model = 16: gemma3's heads replicated under
-    # a split output projection; internvl2's and granite's KV heads
-    # replicated under split query heads
-    want = {"gemma3-4b": (16, "out", False), "internvl2-76b": (16, "heads", False),
-            "granite-moe-1b-a400m": (16, "heads", False)}.get(arch)
-    assert want is None or want in seen
+                elif kind == "rglru+mlp":
+                    split = R.tp_split(tp, p["rglru"], R.RGLRU_TP_DIMS, cfg.d_model)
+                    seen.add((m, split, False))
+                elif kind == "mlstm":
+                    split = R.tp_split(tp, p["mlstm"], R.MLSTM_TP_DIMS,
+                                       B._mlstm_cfg(cfg).d_inner, cfg.n_heads)
+                    seen.add((m, "mlstm_" + str(split), False))
+                elif kind == "slstm":
+                    split = R.tp_split(tp, p["slstm"], R.SLSTM_TP_DIMS,
+                                       B._slstm_cfg(cfg).d_inner, cfg.n_heads)
+                    seen.add((m, "slstm_" + str(split), False))
+    assert {s for _, s, _ in seen} <= {"heads", "out", "channels", "mlstm_heads", "mlstm_whole",
+                                       "slstm_heads", "slstm_whole"}
+    # the published fallbacks at model = 16: gemma3's, recurrentgemma's and
+    # whisper's heads replicated under a split output projection (whisper's
+    # at 4 too); internvl2's and granite's KV heads replicated under split
+    # query heads; xlstm's 4 heads each over several ranks, whole on every
+    # one, its own at 4
+    want = {"gemma3-4b": [(16, "out", False)], "internvl2-76b": [(16, "heads", False)],
+            "granite-moe-1b-a400m": [(16, "heads", False)],
+            "recurrentgemma-2b": [(16, "out", False), (16, "channels", False)],
+            "whisper-tiny": [(4, "out", False), (2, "heads", True)],
+            "xlstm-350m": [(4, "mlstm_heads", False), (16, "mlstm_whole", False),
+                           (4, "slstm_heads", False), (16, "slstm_whole", False)]}.get(arch, [])
+    assert set(want) <= seen, (set(want) - seen)

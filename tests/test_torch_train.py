@@ -365,23 +365,6 @@ def test_microbatch_equivalence():
     assert abs(outs[1][1] - outs[4][1]) < 1e-4
 
 
-@pytest.mark.parametrize("arch,kinds", [("recurrentgemma-2b", "rglru+mlp"),
-                                        ("xlstm-350m", "mlstm, slstm"),
-                                        ("whisper-tiny", "enc+mlp")])
-def test_model_axis_refused(arch, kinds):
-    """The recurrent and encoder-decoder families have no tensor
-    parallelism yet: a "model" axis of 2 is refused with their layer kinds
-    named (the dense and MoE families train there: test_torch_tp.py)."""
-    class _Mesh(_DataMesh):
-        def __init__(self):
-            self.shape, self.rank = (2, 2), 0
-
-    model = lm_params_from_arrays(PC.get_reduced(arch), ref_weights(RC.get_reduced(arch), 0),
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match=kinds.replace("+", r"\+")):
-        PL.make_train_step(model, _Mesh(), default_rules(_Mesh()), PL.TrainConfig())
-
-
 # ------------------------------------------------ four ranks against four devices
 
 RANKS = 4
