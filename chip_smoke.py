@@ -86,7 +86,23 @@ graph:
   those four ranks against the unsharded one, and gemma3-4b at full width
   through it on the one NCCL rank; tensor and expert parallelism on the
   four ranks for every family (`TRAIN_TP`), each cut in f32 against one
-  rank and timed in bf16 (``[train tp]`` lines).
+  rank and timed in bf16 (``[train tp]`` lines);
+* serving with the weights split over "model" on the same four ranks
+  (`SERVE_TP`: gemma3-4b's 5:1 cycle through the sequence-sharded decode
+  with the heads split, qwen2-moe-a2.7b's experts and KV heads over
+  "model", recurrentgemma-2b's cycle whose heads do not divide), at
+  published widths on a (1, 4) mesh through ``launch.steps.build_cell``'s
+  prefill and decode cells, 4 prompts of 4,096 tokens and 32 greedy
+  steps: f32 logits of every rank against rank 0's and against one rank
+  of the same cut, the greedy tokens equal, then bf16 prefill s, decode
+  ms a step, peak GB and the gloo and idle shares beside one rank
+  (``[serve tp]`` lines);
+* the production dry-run on fake ranks: ``python -m
+  repro_torch.launch.dryrun`` for olmo-1b's train_4k and decode_32k
+  cells on pod_16x16, in a process that sees no card (fits in 80 GB,
+  dominant term, bound and roofline fraction on the H100 table), and the
+  operation counter on the gemma3-4b serving cut beside ``_lm_bounds``
+  (``[dryrun]`` lines).
 
 Any failure raises and exits non-zero. The second-to-last line of standard
 output is the kernels' JSON record, the last line the device JSON. Detailed
@@ -3255,8 +3271,8 @@ def train_rank_main(rank: int, tmp: str) -> int:
     with grad_compress, TRAIN_REDUCED_STEPS steps on a ("data", "model") =
     (4, 1) mesh of "cuda" devices and again of "cpu" devices; auto DP with
     zero1 on the cuda mesh; (d) the sequence-sharded decode of
-    SEQ_SHARD_REDUCED on a (1, 4) cuda mesh. Outputs into
-    ``train<k>.npz``."""
+    SEQ_SHARD_REDUCED on a (1, 4) cuda mesh; (e) TRAIN_TP's and (f)
+    SERVE_TP's cuts. Outputs into ``train<k>.npz``."""
     import datetime
 
     import torch.distributed as dist
@@ -3279,6 +3295,8 @@ def train_rank_main(rank: int, tmp: str) -> int:
         out.update(_seq_shard_reduced(mesh))
         for spec in TRAIN_TP:
             out.update(_tp_run(spec, rank))
+        for spec in SERVE_TP:
+            out.update(_serve_tp_run(spec, rank))
         np.savez(os.path.join(tmp, f"train{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
@@ -3676,6 +3694,312 @@ def _profiled_collectives(fn) -> tuple:
                  "by_op": by_op}
 
 
+# (f) serving with the weights split over "model" on the same four gloo
+# ranks: full-width cuts on a ("data", "model") = SERVE_TP_MESH mesh through
+# launch.steps.build_cell's prefill and decode cells, SERVE_TP_ROWS prompts
+# of SERVE_TP_PROMPT tokens (from seed 9) and SERVE_TP_STEPS greedy decode
+# steps. In f32, every rank's logits against rank 0's and against one rank
+# of the same cut and draw (rank 0, after the mesh's run, fed the mesh's
+# tokens); then in bf16, timed beside one rank.
+SERVE_TP = (
+    # one 5:1 cycle: the sequence-sharded decode with the heads split
+    dict(arch="gemma3-4b", layers=6),
+    # the experts and the KV heads over "model"
+    dict(arch="qwen2-moe-a2.7b", layers=1),
+    # one (rglru, rglru, local) cycle: 10 query heads and 1 KV head over 4
+    dict(arch="recurrentgemma-2b", layers=3),
+)
+SERVE_TP_MESH = (1, 4)
+SERVE_TP_ROWS = 4
+SERVE_TP_PROMPT = 4096
+SERVE_TP_STEPS = 32
+# f32 logits, the mesh against one rank: max |diff| over max |logits| of each
+# step (sums split four ways in another order, ~1e-6 expected; a wrong
+# head, channel or expert is O(1)). A greedy token may differ only where the
+# one rank's two best logits are nearer than that.
+SERVE_TP_F32 = 1e-4
+
+
+def _serve_tp_cut(spec: dict, dtype: str, device=None):
+    """SERVE_TP's cut of ``spec["arch"]`` at full width in ``dtype``: a model
+    drawn from seed 5 on ``device`` (the card; "meta": shapes alone)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, abstract_params, build_model
+
+    cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=spec["layers"], dtype=dtype)
+    if device == "meta":
+        return Model(cfg, device="meta", params=abstract_params(cfg)[0])
+    return build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(5))
+
+
+def _serve_tp_cells(cfg, mesh):
+    """build_cell's prefill and decode cells of ``cfg`` on ``mesh`` at
+    SERVE_TP's shape."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.sharding.rules import default_rules
+
+    seq = _serve_tp_slots()
+    for name, kind in (("serve_tp_prefill", "prefill"), ("serve_tp_decode", "decode")):
+        steps.SHAPES[name] = ShapeCell(name, kind, seq, SERVE_TP_ROWS)
+    rules = default_rules(mesh)
+    return (steps.build_cell(cfg, "serve_tp_prefill", mesh, rules),
+            steps.build_cell(cfg, "serve_tp_decode", mesh, rules))
+
+
+def _serve_tp_slots() -> int:
+    """The caches' slots: the prompt, the steps and one profiled step,
+    rounded up to split over the model axis (the sequence-sharded decode)."""
+    m = SERVE_TP_MESH[1]
+    return -(-(SERVE_TP_PROMPT + SERVE_TP_STEPS + 1) // m) * m
+
+
+def _serve_tp_loop(prefill, decode, toks, force=None, profile: bool = False) -> dict:
+    """``prefill(tokens)`` -> (logits, caches), then SERVE_TP_STEPS greedy
+    ``decode(caches, tokens1, pos)`` steps (fed ``force``'s tokens instead
+    where given): the last logits of the prefill and of every step on the
+    card, the tokens fed, prefill s and decode ms a step; with
+    ``profile``, one more step under the profiler."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    logs, fed = [logits[:, -1].float()], []
+    t0 = time.perf_counter()
+    for i in range(SERVE_TP_STEPS + profile):
+        tok = logits[:, -1].argmax(-1) if force is None else force[:, i]
+        pos = torch.full((tok.shape[0],), SERVE_TP_PROMPT + i, dtype=torch.int32, device=DEVICE)
+        if i == SERVE_TP_STEPS:
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / SERVE_TP_STEPS
+            (logits, caches), prof = _profiled_collectives(
+                lambda: decode(caches, tok[:, None].int(), pos))
+            return {"logits": torch.stack(logs, 1), "tokens": torch.stack(fed, 1),
+                    "prefill_s": prefill_s, "decode_ms": ms, "profile": prof}
+        logits, caches = decode(caches, tok[:, None].int(), pos)
+        logs.append(logits[:, -1].float())
+        fed.append(tok)
+    torch.cuda.synchronize()
+    return {"logits": torch.stack(logs, 1), "tokens": torch.stack(fed, 1), "prefill_s": prefill_s,
+            "decode_ms": 1e3 * (time.perf_counter() - t0) / SERVE_TP_STEPS}
+
+
+def _serve_tp_mesh(spec: dict, dtype: str, mesh, profile: bool) -> dict:
+    """``spec``'s cut in ``dtype`` served on ``mesh`` through build_cell's
+    cells, on this rank's shards (the whole draw dropped after the cut)."""
+    from repro_torch.models.transformer import shard_caches
+    from repro_torch.sharding.tp import shard_params
+
+    model = _serve_tp_cut(spec, dtype)
+    cfg = model.cfg
+    pc, dc = _serve_tp_cells(cfg, mesh)
+    params = shard_params(_detached(model), pc.tp)
+    model.weights.to("meta")
+    del model
+    _free_caches()
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (SERVE_TP_ROWS, SERVE_TP_PROMPT))).int().to(DEVICE)
+
+    def prefill(t):
+        logits, caches = pc.fn(params, {"tokens": t})
+        return logits, (shard_caches(cfg, caches, mesh, tp=pc.tp) if cfg.decode_seq_shard
+                        else caches)
+
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_tp_loop(prefill, lambda c, t, p: dc.fn(params, c, {"tokens": t, "pos": p}),
+                         toks, profile=profile)
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    run["toks"] = toks
+    return run
+
+
+def _serve_tp_one(spec: dict, dtype: str, toks, force=None, profile: bool = False) -> dict:
+    """The same cut and draw on one rank, unsharded (``Model.prefill`` and
+    ``decode_step``)."""
+    model = _serve_tp_cut(spec, dtype)
+    seq = _serve_tp_slots()
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_tp_loop(lambda t: model.prefill(t, seq),
+                         lambda c, t, p: model.decode_step(c, t, p), toks, force=force,
+                         profile=profile)
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    return run
+
+
+def _serve_tp_run(spec: dict, rank: int) -> dict:
+    """(f) on this rank: ``spec``'s cut on a SERVE_TP_MESH mesh. In f32,
+    every rank's logits and tokens against rank 0's (broadcast), then on
+    rank 0 the same cut on one rank fed the mesh's tokens, compared there;
+    in bf16, prefill s, decode ms a step, one step profiled and this
+    process's peak, then on rank 0 the same on one rank."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    tag = f"serve_tp.{spec['arch']}"
+    mesh = make_debug_mesh(*SERVE_TP_MESH, device_type=DEVICE)
+    out = {}
+    run = _serve_tp_mesh(spec, "float32", mesh, profile=False)
+    mine = {"logits": run["logits"], "tokens": run["tokens"]}
+    spread = {}
+    for k, t in mine.items():  # rank 0's bits on every rank
+        t0_ = t.clone()
+        dist.broadcast(t0_, src=0)
+        spread[k] = (t.float() - t0_.float()).abs().max().item()
+    out[f"{tag}.f32_spread"] = np.asarray(json.dumps(spread))
+    if rank != 0:
+        del run, mine
+    _free_caches()
+    dist.barrier()
+    if rank == 0:
+        one = _serve_tp_one(spec, "float32", run["toks"], force=run["tokens"])
+        rel = [((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(run["logits"].unbind(1), one["logits"].unbind(1))]
+        # the one rank's greedy choice at each fed step, and its margin
+        top = one["logits"][:, :-1].topk(2, dim=-1).values
+        agree = one["logits"][:, :-1].argmax(-1) == run["tokens"]
+        near = (top[..., 0] - top[..., 1]) <= SERVE_TP_F32 * one["logits"][:, :-1].abs().amax(-1)
+        row = {"logits_max_rel": max(rel), "logits_rel_by_step": rel,
+               "tokens_agree": int(agree.sum()), "tokens": int(agree.numel()),
+               "near_ties": int(near.sum()), "disagree_outside_near_ties": int((~agree & ~near).sum()),
+               "tokens_fed": run["tokens"][0, :8].tolist(), "limit": SERVE_TP_F32}
+        row["ok"] = bool(row["logits_max_rel"] <= SERVE_TP_F32
+                         and row["disagree_outside_near_ties"] == 0)
+        out[f"{tag}.f32"] = np.asarray(json.dumps(row))
+        del one, run
+    _free_caches()
+    dist.barrier()
+    run = _serve_tp_mesh(spec, "bfloat16", mesh, profile=True)
+    bf16 = {k: run[k] for k in ("prefill_s", "decode_ms", "peak_gb", "profile")}
+    toks = run["toks"]
+    del run
+    _free_caches()
+    dist.barrier()
+    if rank == 0:
+        one = _serve_tp_one(spec, "bfloat16", toks, profile=True)
+        bf16["one_rank"] = {k: one[k] for k in ("prefill_s", "decode_ms", "peak_gb", "profile")}
+        del one
+        _free_caches()
+    dist.barrier()
+    out[f"{tag}.bf16"] = np.asarray(json.dumps(bf16))
+    return out
+
+
+def _serve_tp_rows(ranks: list) -> list:
+    """(f)'s rows: each cut's f32 checks, and in bf16 its prefill s, decode
+    ms a step, peak GB and profiled gloo and idle shares of every rank
+    beside one rank's, with the bound of the same work on one card
+    (``_lm_bounds``); ``[serve tp]`` lines."""
+    rows = []
+    for spec in SERVE_TP:
+        tag = f"serve_tp.{spec['arch']}"
+        spread = [json.loads(str(r[f"{tag}.f32_spread"])) for r in ranks]
+        f32 = json.loads(str(ranks[0][f"{tag}.f32"]))
+        f32["every_rank_vs_rank0"] = spread
+        f32["ok"] = bool(f32["ok"] and all(s["tokens"] == 0 for s in spread)
+                         and all(s["logits"] <= SERVE_TP_F32 for s in spread))
+        bf16 = [json.loads(str(r[f"{tag}.bf16"])) for r in ranks]
+        model = _serve_tp_cut(spec, "bfloat16", device="meta")
+        bounds = _lm_bounds(model, SERVE_TP_ROWS, SERVE_TP_PROMPT, SERVE_TP_STEPS,
+                            picked=model.cfg.moe_top_k * spec["layers"] if model.cfg.moe_experts
+                            else 0.0)
+        one = bf16[0]["one_rank"]
+        row = {"arch": spec["arch"], "layers": spec["layers"], "mesh": list(SERVE_TP_MESH),
+               "prompts": SERVE_TP_ROWS, "prompt": SERVE_TP_PROMPT,
+               "decode_steps": SERVE_TP_STEPS, "card": RECORD.get("nvidia_smi"),
+               "backend": "gloo, four ranks on one card", "f32": f32,
+               "bf16_prefill_s": max(b["prefill_s"] for b in bf16),
+               "bf16_decode_ms": max(b["decode_ms"] for b in bf16),
+               "peak_gb_by_rank": [b["peak_gb"] for b in bf16],
+               "gloo_share_by_rank": [b["profile"]["collective_share"] for b in bf16],
+               "idle_share_by_rank": [b["profile"]["device_idle_share"] for b in bf16],
+               "one_rank": {"prefill_s": one["prefill_s"], "decode_ms": one["decode_ms"],
+                            "peak_gb": one["peak_gb"],
+                            "idle_share": one["profile"]["device_idle_share"]},
+               "bound_one_card": {k: bounds[k] for k in (
+                   "prefill_bound_ms", "prefill_bound_by", "decode_bound_ms")}}
+        log(f"[serve tp] {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("olmo-1b", "decode_32k"))
+
+
+def _dryrun_start() -> list:
+    """Start the production dry-run on fake ranks (``repro_torch.launch.
+    dryrun`` as its CLI, each cell in a process of its own that sees no
+    card) for DRYRUN_CELLS on pod_16x16; they run on the host while the
+    card trains (``_dryrun_lines`` reads them)."""
+    out_dir = os.path.join(_scratch(), "dryrun")
+    started = []
+    for arch, shape in DRYRUN_CELLS:
+        started.append((arch, shape, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--mesh", "single", "--out", out_dir], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=ROOT,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.path.join(ROOT, "src")))))
+    return started
+
+
+def _dryrun_lines(started: list) -> list:
+    """``[dryrun]`` lines of the cells ``_dryrun_start`` started (fits in
+    80 GB, dominant term, bound and roofline fraction on HW_H100); then the
+    operation counter (``roofline.op_count``) on the gemma3-4b serving cut
+    of (f) on one rank, its prefill and one decode step, beside
+    ``_lm_bounds``'s operations and bytes of the same work."""
+    from repro_torch.models import transformer as T
+    from repro_torch.roofline.op_count import analyze
+
+    out_dir = os.path.join(_scratch(), "dryrun")
+    rows = []
+    for arch, shape, t0, proc in started:
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {arch} {shape}: {out[-2000:]}{err[-2000:]}")
+        with open(os.path.join(out_dir, f"{arch}__{shape}__pod_16x16.json")) as f:
+            rec = json.load(f)
+        row = {"arch": arch, "shape": shape, "mesh": rec["mesh"], "n_chips": rec["n_chips"],
+               "hw": "HW_H100", "fits_hbm": rec["memory"]["fits_hbm"],
+               "peak_gb": rec["memory"]["peak_bytes"] / 1e9,
+               "dominant": rec["roofline"]["dominant"],
+               "bound_s": max(rec["roofline"][k] for k in ("t_compute_s", "t_memory_s",
+                                                           "t_collective_s")),
+               "roofline_fraction": rec["roofline_fraction"],
+               "flops_per_device": rec["cost"]["flops_scaled"],
+               "bytes_per_device": rec["cost"]["traffic_dot_bytes_scaled"],
+               "collective_bytes_per_device": rec["collectives"]["bytes"]["total"],
+               "cell_s": rec["build_s"] + rec["run_s"], "wall_s": time.perf_counter() - t0}
+        log(f"[dryrun] {json.dumps(row)}")
+        rows.append(row)
+    spec = SERVE_TP[0]
+    model = _serve_tp_cut(spec, "bfloat16", device="meta")
+    cfg, params = model.cfg, model.params
+    seq = SERVE_TP_PROMPT + SERVE_TP_STEPS
+    toks = torch.empty((SERVE_TP_ROWS, SERVE_TP_PROMPT), dtype=torch.int32, device="meta")
+    pre = analyze(lambda p, t: T.prefill(cfg, p, t, seq), params, toks)
+    caches = T.init_caches(cfg, SERVE_TP_ROWS, seq, "meta")
+    one = torch.empty((SERVE_TP_ROWS, 1), dtype=torch.int32, device="meta")
+    pos = torch.empty((SERVE_TP_ROWS,), dtype=torch.int32, device="meta")
+    dec = analyze(lambda p, c, t, q: T.decode_step(cfg, p, c, t, q), params, caches, one, pos)
+    bounds = _lm_bounds(model, SERVE_TP_ROWS, SERVE_TP_PROMPT, SERVE_TP_STEPS)
+    row = {"arch": spec["arch"], "layers": spec["layers"], "prompts": SERVE_TP_ROWS,
+           "prompt": SERVE_TP_PROMPT, "one_rank": True,
+           "counter_prefill_flops": pre["flops_scaled"],
+           "lm_bounds_prefill_ops": bounds["prefill_ops"],
+           "counter_prefill_bytes": pre["traffic_dot_bytes_scaled"],
+           "counter_decode_flops": dec["flops_scaled"],
+           "counter_decode_bytes": dec["traffic_dot_bytes_scaled"],
+           "lm_bounds_decode_read_bytes": bounds["decode_read_gb"] * 1e9}
+    log(f"[dryrun] counter against _lm_bounds {json.dumps(row)}")
+    rows.append(row)
+    if not all(r["fits_hbm"] for r in rows[:len(DRYRUN_CELLS)]):
+        raise AssertionError(f"dryrun: a cell does not fit: {rows}")
+    return rows
+
+
 def _train_four_ranks() -> list[dict]:
     import tempfile
 
@@ -3725,7 +4049,8 @@ def _four_rank_checks() -> dict:
     r0 = ranks[0]
     row: dict = {"ranks": TRAIN_RANKS, "backend": "gloo", "seconds_with_spawn": spawn_s}
     # every rank's state but its error-feedback residual (its own by design)
-    state_keys = [k for k in r0 if not k.startswith(("seq.", "tp.")) and ".err" not in k]
+    state_keys = [k for k in r0 if not k.startswith(("seq.", "tp.", "serve_tp."))
+                  and ".err" not in k]
     row["every_rank_equals_rank0"] = all(
         all(np.array_equal(rk[k], r0[k]) for k in state_keys) for rk in ranks[1:])
 
@@ -3797,10 +4122,11 @@ def _four_rank_checks() -> dict:
     seq.update(cache_max_abs_diff=worst, tol=SEQ_SHARD_TOL, ok=bool(ok))
     row["seq_shard_4ranks_vs_unsharded"] = seq
     row["tp"] = _tp_rows(ranks)
+    row["serve_tp"] = _serve_tp_rows(ranks)
     log(f"[train] four gloo ranks on one card {json.dumps(row)}")
     if not (row["every_rank_equals_rank0"] and row["manual_dp_compress_card_vs_cpu"]["ok"]
             and row["zero1_4ranks_vs_1rank"]["ok"] and seq["ok"]
-            and all(r["f32"]["ok"] for r in row["tp"])
+            and all(r["f32"]["ok"] for r in row["tp"] + row["serve_tp"])
             and all(r["save"]["params_bits_equal"] for r in row["tp"] if "save" in r)):
         raise AssertionError(f"train four ranks: {row}")
     return row
@@ -3908,6 +4234,10 @@ def phase_train() -> None:
         f32, then timed in bf16 (`_tp_run`, `_tp_rows`); the
         olmo cut's bf16 state checkpointed, its parameters read back bit
         for bit against the mesh's (`_tp_save`).
+    (f) Serving with the weights split over "model" on the same four
+        ranks, the SERVE_TP cuts through build_cell's prefill and decode
+        cells, f32 against one rank, bf16 timed (`_serve_tp_run`,
+        `_serve_tp_rows`); then the dry-run lines (`_dryrun_lines`).
     """
     import datetime
     import tempfile
@@ -3928,20 +4258,30 @@ def phase_train() -> None:
         "nccl" if DEVICE == "cuda" else "gloo",
         store=dist.FileStore(os.path.join(store_dir.name, "store"), 1), rank=0,
         world_size=1, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    dryrun = _dryrun_start()   # on the host, while the card trains
     try:
-        mesh = make_debug_mesh(device_type=DEVICE)
+        try:
+            mesh = make_debug_mesh(device_type=DEVICE)
+            t = time.perf_counter()
+            rec["olmo"] = _train_full(mesh)
+            rec["olmo_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            rec["seq_shard_full"] = _seq_shard_full(mesh)
+            rec["seq_shard_full_s"] = time.perf_counter() - t
+        finally:
+            dist.destroy_process_group()
+            store_dir.cleanup()
         t = time.perf_counter()
-        rec["olmo"] = _train_full(mesh)
-        rec["olmo_s"] = time.perf_counter() - t
+        rec["four_ranks"] = _four_rank_checks()
+        rec["four_ranks_s"] = time.perf_counter() - t
         t = time.perf_counter()
-        rec["seq_shard_full"] = _seq_shard_full(mesh)
-        rec["seq_shard_full_s"] = time.perf_counter() - t
+        rec["dryrun"] = _dryrun_lines(dryrun)
+        rec["dryrun_s"] = time.perf_counter() - t
     finally:
-        dist.destroy_process_group()
-        store_dir.cleanup()
-    t = time.perf_counter()
-    rec["four_ranks"] = _four_rank_checks()
-    rec["four_ranks_s"] = time.perf_counter() - t
+        for *_, proc in dryrun:   # none outlives a failed phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"[train] phase {rec['seconds']:.1f} s")
     RECORD["phases"]["train"] = rec

@@ -103,27 +103,51 @@ def tp_local(cfg: AttnConfig, params, tp):
     """
     h_loc = params["wq"].shape[1]
     if h_loc < cfg.n_heads:
-        g = cfg.n_heads // cfg.n_kv
-        q0 = tp.offset(h_loc)
         wk, wv = params["wk"], params["wv"]
         n_kv = wk.shape[1]
         if n_kv == cfg.n_kv:
-            if h_loc % g == 0:
-                n_kv = h_loc // g
-            elif g % h_loc == 0:
-                n_kv = 1
-            else:
-                raise NotImplementedError(
-                    f"attn.wk/wv: {h_loc} query heads a rank do not map onto whole groups "
-                    f"of {g} over {cfg.n_kv} replicated KV heads")
-            kv0 = q0 // g
-            wk = tp.enter(wk)[:, kv0:kv0 + n_kv]
-            wv = tp.enter(wv)[:, kv0:kv0 + n_kv]
+            kv = _kv_read(cfg, h_loc, tp)
+            n_kv = kv.stop - kv.start
+            wk, wv = tp.enter(wk)[:, kv], tp.enter(wv)[:, kv]
         local = dataclasses.replace(cfg, n_heads=h_loc, n_kv=n_kv)
         return local, {"wq": params["wq"], "wk": wk, "wv": wv, "wo": params["wo"]}, "heads"
     if params["wo"].shape[0] < cfg.n_heads * cfg.head_dim:
         return cfg, params, "out"
     return cfg, params, None
+
+
+def _kv_read(cfg: AttnConfig, h_loc: int, tp) -> slice:
+    """The replicated KV heads that this rank's ``h_loc`` query heads read
+    (query head ``q0 + i`` reads KV head ``(q0 + i) // G``)."""
+    g = cfg.n_heads // cfg.n_kv
+    if h_loc % g == 0:
+        n_kv = h_loc // g
+    elif g % h_loc == 0:
+        n_kv = 1
+    else:
+        raise NotImplementedError(
+            f"attn.wk/wv: {h_loc} query heads a rank do not map onto whole groups "
+            f"of {g} over {cfg.n_kv} replicated KV heads")
+    kv0 = tp.offset(h_loc) // g
+    return slice(kv0, kv0 + n_kv)
+
+
+def serve_local(cfg: AttnConfig, params, tp):
+    """Serving's :func:`tp_local`: (this rank's config, the weights it
+    uses, ``split``, ``kv``). The K/V projections give the heads that this
+    rank's cache holds: its own KV heads where ``kv_heads`` is split, every
+    KV head where it is replicated (the whole cache, as the reference lays
+    it out); ``kv`` is the slice of the cache's heads that this rank's
+    query heads read (None: all of them). Without ``tp``, the unsharded
+    weights."""
+    if tp is None:
+        return cfg, params, None, None
+    h_loc = params["wq"].shape[1]
+    if h_loc < cfg.n_heads and params["wk"].shape[1] == cfg.n_kv:
+        kv = _kv_read(cfg, h_loc, tp)
+        return (dataclasses.replace(cfg, n_heads=h_loc, n_kv=kv.stop - kv.start), params,
+                "heads", kv)
+    return (*tp_local(cfg, params, tp), None)
 
 
 def _scaled_q(cfg: AttnConfig, q: torch.Tensor) -> torch.Tensor:
@@ -260,7 +284,7 @@ def decode_append_attend_seqsharded(
     rows; the reference's ``shard_map`` splits them). The new token's K/V is written by the one
     shard that owns slot ``pos % S_total``; then each rank takes its partial
     max, the group's max (``all_reduce(MAX)``), ``p = exp(s - m_glob)``, and
-    the group's sums (``all_reduce(SUM)``) of ``l`` and of the weighted V;
+    the group's sum (one ``all_reduce(SUM)``) of ``l`` and the weighted V;
     the result is ``o / max(l, 1e-30)``. The per-token collective volume is
     O(B * Hq * hd). Writes into the cache shards it is given and returns
     (attn_out, k_cache, v_cache, slot_positions).
@@ -289,10 +313,10 @@ def decode_append_attend_seqsharded(
     m_glob = s.amax(dim=-1)                                   # (B, Hkv, G)
     dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
     p = torch.exp(s - m_glob[..., None])
-    l_glob = p.sum(dim=-1)
-    o_glob = torch.einsum("bhgk,bkhe->bhge", p.to(q.dtype).float(), v_cache.float())
-    dist.all_reduce(l_glob, op=dist.ReduceOp.SUM, group=group)
-    dist.all_reduce(o_glob, op=dist.ReduceOp.SUM, group=group)
+    o_loc = torch.einsum("bhgk,bkhe->bhge", p.to(q.dtype).float(), v_cache.float())
+    lo = torch.cat([p.sum(dim=-1)[..., None], o_loc], dim=-1)   # (l, o): one sum
+    dist.all_reduce(lo, op=dist.ReduceOp.SUM, group=group)
+    l_glob, o_glob = lo[..., 0], lo[..., 1:]
     out = o_glob / torch.clamp_min(l_glob, 1e-30)[..., None]
     out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim).to(q.dtype)
     return out, k_cache, v_cache, slot_positions

@@ -110,19 +110,47 @@ def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def block_cache(kind: str, cfg, batch: int, max_seq: int, dtype, device) -> dict:
+def block_cache(kind: str, cfg, batch: int, max_seq: int, dtype, device, tp=None,
+                dims=None, seq_shards: int = 1) -> dict:
     """Allocate an empty decode cache (or the zero recurrent state) for one
-    layer of this kind."""
+    layer of this kind.
+
+    With ``tp`` (``sharding.tp.TPContext``) and ``dims`` (the layer's
+    split dimensions, a subtree of ``tp.dims``), the shapes that this
+    rank's shards compute: the K/V caches of its own KV heads where
+    ``kv_heads`` is split (else every head); the RG-LRU state of its
+    ``d_rnn`` channels; the mLSTM state of its heads and the sLSTM state
+    of their channels where the axis divides the heads (else every one).
+    ``seq_shards`` > 1: the sequence-sharded decode's K/V caches, this
+    rank's contiguous ``1/seq_shards`` of the slots with every KV head."""
+    def split(sub: str, name: str) -> bool:
+        return tp is not None and dims is not None and dims[sub][name] is not None
+
     if kind == "rglru+mlp":
-        return R.rglru_state(_rglru_cfg(cfg), batch, dtype, device)
+        rc = _rglru_cfg(cfg)
+        return R.rglru_state(rc, batch, dtype, device,
+                             width=rc.d_rnn // tp.size if split("rglru", "wx") else None)
     if kind == "mlstm":
-        return R.mlstm_state(_mlstm_cfg(cfg), batch, device)
+        mc = _mlstm_cfg(cfg)
+        heads = split("mlstm", "w_up") and mc.n_heads % tp.size == 0
+        return R.mlstm_state(mc, batch, device,
+                             n_heads=mc.n_heads // tp.size if heads else None)
     if kind == "slstm":
-        return R.slstm_state(_slstm_cfg(cfg), batch, device)
+        sc = _slstm_cfg(cfg)
+        heads = split("slstm", "w_up") and sc.n_heads % tp.size == 0
+        return R.slstm_state(sc, batch, device,
+                             width=sc.d_inner // tp.size if heads else None)
     if kind not in ATTN_KINDS:
         raise ValueError(kind)
     s_c = min(max_seq, cfg.window) if kind == "local+mlp" else max_seq
-    shape = (batch, s_c, cfg.n_kv, cfg.head_dim)
+    n_kv = cfg.n_kv
+    if seq_shards > 1:
+        if s_c % seq_shards:
+            raise ValueError(f"a cache of {s_c} slots does not split over {seq_shards} ranks")
+        s_c //= seq_shards
+    elif split("attn", "wk"):
+        n_kv //= tp.size
+    shape = (batch, s_c, n_kv, cfg.head_dim)
     cache = {"slot_pos": torch.full((batch, s_c), -1, dtype=torch.int32, device=device)}
     if cfg.kv_cache_dtype == "int8":
         cache["k"] = torch.zeros(shape, dtype=torch.int8, device=device)
@@ -185,26 +213,80 @@ def _append_kv_cache(cache: dict, k1, v1, pos) -> dict:
 # --------------------------------------------------------------------- apply
 
 def attend(cfg, acfg: A.AttnConfig, params, h: torch.Tensor, positions: torch.Tensor,
-           tp=None):
+           tp=None, serve: bool = False):
     """The attention sub-layer over a full sequence, projected back to the
     model width: (out, k, v). The attention is materialized, KV-chunked or
     doubly chunked by the sequence's length against ``cfg``'s chunks. With
     ``tp`` (``sharding.tp.TPContext``), on this rank's shards
     (``attention.tp_local``), ``out`` summed over the model group and
-    ``k``/``v`` this rank's heads."""
-    split = None
-    if tp is not None:
+    ``k``/``v`` this rank's heads; with ``serve`` (a prefill that fills a
+    cache), ``k``/``v`` are the heads this rank's cache holds
+    (``attention.serve_local``)."""
+    split = kv = None
+    if tp is not None and serve:
+        acfg, params, split, kv = A.serve_local(acfg, params, tp)
+    elif tp is not None:
         acfg, params, split = A.tp_local(acfg, params, tp)
-        if split == "heads":
-            h = tp.enter(h)
+    if split == "heads":
+        h = tp.enter(h)
     q, k, v = A.project_qkv(acfg, params, h, positions[None, :])
+    ka, va = (k, v) if kv is None else (k[:, :, kv], v[:, :, kv])
     if cfg.q_chunk and h.shape[1] > cfg.q_chunk:
-        out = A.attention_chunked_q(acfg, q, k, v, positions, positions, cfg.q_chunk)
+        out = A.attention_chunked_q(acfg, q, ka, va, positions, positions, cfg.q_chunk)
     elif h.shape[1] > cfg.kv_chunk:
-        out = A.attention_chunked(acfg, q, k, v, positions, positions)
+        out = A.attention_chunked(acfg, q, ka, va, positions, positions)
     else:
-        out = A.attention_full(acfg, q, k, v, positions, positions)
+        out = A.attention_full(acfg, q, ka, va, positions, positions)
     return A.output_proj(acfg, params, out, tp, split), k, v
+
+
+def attend_decode(cfg, acfg: A.AttnConfig, params, h: torch.Tensor, pos: torch.Tensor,
+                  cache: dict, mesh=None, tp=None):
+    """One decode step of the attention sub-layer: the new token's K/V
+    written into ``cache`` and attended with it, projected back to the
+    model width: (out, cache). ``h``: (B, 1, D); ``pos``: (B,).
+
+    With ``tp``, on this rank's shards (``attention.serve_local``) over the
+    heads its cache holds. With ``cfg.decode_seq_shard`` and ``mesh``, the
+    sequence-sharded decode: each rank holds every KV head of its slots,
+    so where the heads are split the step's ``q`` (and ``k1``/``v1`` of
+    split KV heads) are gathered over the model group, the FlashDecoding
+    combine runs over every head, and this rank takes its heads before the
+    row-parallel output projection."""
+    full = acfg
+    acfg, params, split, kv = A.serve_local(acfg, params, tp)
+    if split == "heads":
+        h = tp.enter(h)
+    q, k1, v1 = A.project_qkv(acfg, params, h, pos[:, None])
+    if cfg.decode_seq_shard and mesh is not None:
+        if cfg.kv_cache_dtype == "int8":
+            raise NotImplementedError(
+                "int8 KV + sequence-sharded decode not wired together yet; "
+                "use one or the other (tracked as future work)"
+            )
+        if split == "heads":
+            # every rank's heads in one gather: q, with k1 and v1 where this
+            # rank computed only its own KV heads
+            parts = [q] if kv is not None else [q, k1, v1]
+            whole = tp.gather(torch.cat(parts, dim=2).unsqueeze(2), dim=2)
+            got = whole.split([t.shape[2] for t in parts], dim=3)
+            q, *kv1 = (t.flatten(2, 3) for t in got)
+            if kv1:
+                k1, v1 = kv1
+        out, kc, vc, sp = A.decode_append_attend_seqsharded(
+            full, mesh, cfg.decode_seq_axis, q, k1, v1,
+            cache["k"], cache["v"], pos, cache["slot_pos"],
+        )
+        if split == "heads":
+            out = tp.take(out, dim=2)
+        cache = {"k": kc, "v": vc, "slot_pos": sp}
+    else:
+        cache = _append_kv_cache(cache, k1, v1, pos)
+        kd, vd = _cache_kv_views(cfg, cache)
+        if kv is not None:
+            kd, vd = kd[:, :, kv], vd[:, :, kv]
+        out = A.decode_attention(acfg, q, kd, vd, pos, cache["slot_pos"])
+    return A.output_proj(acfg, params, out, tp, split), cache
 
 
 def block_apply(
@@ -218,18 +300,15 @@ def block_apply(
     decode=False (the cache is filled). Decode: cache carried, decode=True,
     x is (B, 1, D) and positions is (B,) absolute position of the new token.
     Only ``attn+moe`` has an auxiliary loss; the other kinds give 0.0.
-    ``tp`` (``sharding.tp.TPContext``): the forward with this rank's
-    shards of the attention, MLP, MoE and recurrent weights (the training
-    path: no cache, no decode); the norms and the residual stream stay
-    replicated. ``batch_group``: the MoE's aux loss is over it (a
-    data-parallel step's batch group). ``mesh`` serves only the
-    sequence-sharded decode.
+    ``tp`` (``sharding.tp.TPContext``): this rank's shards of the
+    attention, MLP, MoE and recurrent weights, in training, prefill and
+    decode alike, the cache this rank's part (:func:`block_cache`); the
+    norms and the residual stream stay replicated. ``batch_group``: the
+    MoE's aux loss is over it (a data-parallel step's batch group).
+    ``mesh`` serves only the sequence-sharded decode.
     """
     aux = 0.0
     new_cache = cache
-    if tp is not None and (cache is not None or decode):
-        raise NotImplementedError("tensor parallelism covers the forward without a cache, "
-                                  "not a prefill or a decode step")
 
     if kind in ATTN_KINDS:
         window = cfg.window if kind == "local+mlp" else None
@@ -238,26 +317,11 @@ def block_apply(
             acfg = A.AttnConfig(**{**acfg.__dict__, "causal": False})
         h = apply_norm(cfg.norm_kind, params["norm1"], x)
         if decode:
-            q, k1, v1 = A.project_qkv(acfg, params["attn"], h, positions[:, None])
-            if cfg.kv_cache_dtype == "int8" and cfg.decode_seq_shard and mesh is not None:
-                raise NotImplementedError(
-                    "int8 KV + sequence-sharded decode not wired together yet; "
-                    "use one or the other (tracked as future work)"
-                )
-            if cfg.decode_seq_shard and mesh is not None:
-                attn_out, kc, vc, sp = A.decode_append_attend_seqsharded(
-                    acfg, mesh, cfg.decode_seq_axis, q, k1, v1,
-                    cache["k"], cache["v"], positions, cache["slot_pos"],
-                )
-                new_cache = {"k": kc, "v": vc, "slot_pos": sp}
-            else:
-                new_cache = _append_kv_cache(cache, k1, v1, positions)
-                kd, vd = _cache_kv_views(cfg, new_cache)
-                attn_out = A.decode_attention(acfg, q, kd, vd, positions,
-                                              new_cache["slot_pos"])
-            attn_out = A.output_proj(acfg, params["attn"], attn_out)
+            attn_out, new_cache = attend_decode(cfg, acfg, params["attn"], h, positions, cache,
+                                                mesh, tp)
         else:
-            attn_out, k, v = attend(cfg, acfg, params["attn"], h, positions, tp)
+            attn_out, k, v = attend(cfg, acfg, params["attn"], h, positions, tp,
+                                    serve=cache is not None)
             if cache is not None:
                 new_cache = _fill_kv_cache(cache, k, v, positions)
         # named for the "save_tp" remat policy, which keeps these two (after

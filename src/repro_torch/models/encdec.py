@@ -12,15 +12,17 @@ decoder caches a list of per-layer K/V cache dicts. The cross-attention K/V
 are projected from the encoder output at every call, decode steps included,
 as the reference does.
 
-Under tensor parallelism (``tp=``, a ``sharding.tp.TPContext``: the
-training forward) the encoder layers run ``blocks.block_apply``'s
+Under tensor parallelism (``tp=``, a ``sharding.tp.TPContext``: training,
+prefill and decode alike) the encoder layers run ``blocks.block_apply``'s
 attention path, the decoder's self-attention and MLP the same split, and
 the cross-attention's query and K/V projections are column-parallel over
 its heads (the encoder output enters the model group once, before every
 layer's K/V projections) and its output projection row-parallel; the
 heads fall back as ``attention.tp_local`` reads them from the weights.
 The tied logits and the loss are ``transformer``'s, vocab-parallel where
-the vocab splits.
+the vocab splits. Serving's self-attention caches are this rank's part
+(``blocks.block_cache``'s rule: its own KV heads where they split) and its
+logits are whole.
 """
 from __future__ import annotations
 
@@ -34,7 +36,9 @@ from repro_torch.models.layers import (
     MLPConfig, apply_mlp, apply_norm, init_embedding, init_linear, init_mlp, init_norm,
 )
 from repro_torch.models.remat import checkpoint_name, maybe_remat
-from repro_torch.models.transformer import cross_entropy, embed_tokens, logits_from
+from repro_torch.models.transformer import (
+    _seq_shards, _whole_logits, cross_entropy, embed_tokens, logits_from,
+)
 
 
 def _self_cfg(cfg, causal: bool) -> A.AttnConfig:
@@ -122,17 +126,13 @@ def cross_attend(cfg, p, h: torch.Tensor, enc_kv, tp=None) -> torch.Tensor:
     return A.output_proj(xcfg, p, xout, tp, split)
 
 
-def _dec_layer(cfg, p, x, enc_kv, positions, cache=None, decode=False, tp=None):
+def _dec_layer(cfg, p, x, enc_kv, positions, cache=None, decode=False, tp=None, mesh=None):
     scfg = _self_cfg(cfg, True)
     h = apply_norm(cfg.norm_kind, p["norm1"], x)
     if decode:
-        q, k1, v1 = A.project_qkv(scfg, p["self"], h, positions[:, None])
-        cache = B._append_kv_cache(cache, k1, v1, positions)
-        kd, vd = B._cache_kv_views(cfg, cache)
-        attn = A.output_proj(scfg, p["self"],
-                             A.decode_attention(scfg, q, kd, vd, positions, cache["slot_pos"]))
+        attn, cache = B.attend_decode(cfg, scfg, p["self"], h, positions, cache, mesh, tp)
     else:
-        attn, k, v = B.attend(cfg, scfg, p["self"], h, positions, tp)
+        attn, k, v = B.attend(cfg, scfg, p["self"], h, positions, tp, serve=cache is not None)
         if cache is not None:
             cache = B._fill_kv_cache(cache, k, v, positions)
     # the sub-layers' outputs named as block_apply's, for "save_tp"
@@ -161,20 +161,21 @@ def _enc_kv(cfg, params, enc_out: torch.Tensor, tp=None) -> list:
 
 
 def decoder_forward(cfg, params, tokens: torch.Tensor, enc_out: torch.Tensor,
-                    caches: Optional[list] = None, decode: bool = False, pos=None, tp=None):
+                    caches: Optional[list] = None, decode: bool = False, pos=None, tp=None,
+                    mesh=None):
     """Returns (logits, new caches or None). Decode: tokens (B, 1), pos (B,).
-    With ``tp``, the training forward on this rank's shards, the logits
-    this rank's vocab range where ``vocab`` is split."""
-    if tp is not None and (caches is not None or decode):
-        raise NotImplementedError("tensor parallelism covers the forward without a cache, "
-                                  "not a prefill or a decode step")
+    With ``tp``, on this rank's shards and its part of the caches, the
+    logits this rank's vocab range where ``vocab`` is split. With
+    ``cfg.decode_seq_shard`` and ``mesh``, a decode step runs the
+    sequence-sharded decode (``blocks.attend_decode``)."""
     x = embed_tokens(cfg, params, tokens, tp)
     positions = pos if decode else torch.arange(x.shape[1], device=x.device)
     # without caches (a training or plain forward) each layer runs under
     # cfg.remat, as the reference's scanned decoder body
     layer = maybe_remat(cfg.remat if caches is None and not decode else "none",
                         lambda x, p, ekv, c: _dec_layer(cfg, p, x, ekv, positions,
-                                                        cache=c, decode=decode, tp=tp))
+                                                        cache=c, decode=decode, tp=tp,
+                                                        mesh=mesh))
     new_caches = None if caches is None else []
     for i, (p, ekv) in enumerate(zip(params["dec"], _enc_kv(cfg, params, enc_out, tp))):
         c = None if caches is None else caches[i]
@@ -194,23 +195,40 @@ def loss_fn(cfg, params, batch: dict, mesh=None, tp=None):
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
-def init_dec_caches(cfg, batch: int, max_seq: int, device) -> list[dict]:
-    shape = (batch, max_seq, cfg.n_kv, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-             "slot_pos": torch.full((batch, max_seq), -1, dtype=torch.int32, device=device)}
-            for _ in range(cfg.dec_layers)]
+def init_dec_caches(cfg, batch: int, max_seq: int, device, tp=None, mesh=None) -> list[dict]:
+    """The decoder's empty self-attention caches; with ``tp``, of this
+    rank's KV heads where they are split over the model axis; with
+    ``mesh`` too and ``cfg.decode_seq_shard``, the sequence-sharded
+    decode's layout (this rank's shard of the slots, every KV head)."""
+    seq = _seq_shards(cfg, mesh)
+    if max_seq % seq:
+        raise ValueError(f"a cache of {max_seq} slots does not split over {seq} ranks")
+    out = []
+    for i in range(cfg.dec_layers):
+        n_kv = cfg.n_kv
+        if seq == 1 and tp is not None and tp.dims["dec"][i]["self"]["wk"] is not None:
+            n_kv //= tp.size
+        shape = (batch, max_seq // seq, n_kv, cfg.head_dim)
+        out.append({"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+                    "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+                    "slot_pos": torch.full(shape[:2], -1, dtype=torch.int32, device=device)})
+    return out
 
 
-def prefill(cfg, params, frames: torch.Tensor, tokens: torch.Tensor, max_seq: int):
-    """Returns (last logits (B, 1, V), decoder caches, encoder output)."""
-    enc_out = encode(cfg, params, frames)
-    caches = init_dec_caches(cfg, tokens.shape[0], max_seq, enc_out.device)
-    logits, caches = decoder_forward(cfg, params, tokens, enc_out, caches=caches)
-    return logits[:, -1:], caches, enc_out
+def prefill(cfg, params, frames: torch.Tensor, tokens: torch.Tensor, max_seq: int, tp=None):
+    """Returns (last logits (B, 1, V), decoder caches, encoder output); with
+    ``tp``, on this rank's shards and rows, the caches its part."""
+    enc_out = encode(cfg, params, frames, tp)
+    caches = init_dec_caches(cfg, tokens.shape[0], max_seq, enc_out.device, tp)
+    logits, caches = decoder_forward(cfg, params, tokens, enc_out, caches=caches, tp=tp)
+    return _whole_logits(cfg, params, logits[:, -1:], tp), caches, enc_out
 
 
 def decode_step(cfg, params, caches: list, enc_out: torch.Tensor, tokens1: torch.Tensor,
-                pos: torch.Tensor):
-    """tokens1: (B, 1); pos: (B,). Writes the new token's K/V into ``caches``."""
-    return decoder_forward(cfg, params, tokens1, enc_out, caches=caches, decode=True, pos=pos)
+                pos: torch.Tensor, tp=None, mesh=None):
+    """tokens1: (B, 1); pos: (B,). Writes the new token's K/V into ``caches``;
+    the logits are whole under ``tp``. With ``cfg.decode_seq_shard`` and
+    ``mesh``, the caches are laid out by ``transformer.shard_caches``."""
+    logits, caches = decoder_forward(cfg, params, tokens1, enc_out, caches=caches, decode=True,
+                                     pos=pos, tp=tp, mesh=mesh)
+    return _whole_logits(cfg, params, logits, tp), caches

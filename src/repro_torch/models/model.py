@@ -191,6 +191,7 @@ class Model(nn.Module):
                 generator = torch.Generator(device=device).manual_seed(0)
             params, _ = self._mod.init_params(cfg, generator, device)
         self.weights = _ParamTree(params)
+        self.tp = None   # a TPContext on a model of this rank's shards (shard)
 
     @property
     def params(self) -> dict:
@@ -232,17 +233,41 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def prefill(self, *args, **kw):
-        return self._mod.prefill(self.cfg, self.params, *args, **kw)
+        return self._mod.prefill(self.cfg, self.params, *args, **self._tp(kw))
 
     @torch.inference_mode()
     def decode_step(self, *args, **kw):
-        return self._mod.decode_step(self.cfg, self.params, *args, **kw)
+        return self._mod.decode_step(self.cfg, self.params, *args, **self._tp(kw))
 
-    def init_caches(self, batch: int, max_seq: int) -> list[dict]:
+    def init_caches(self, batch: int, max_seq: int, mesh=None) -> list[dict]:
+        """Empty decode caches of ``batch`` rows; on a sharded model, this
+        rank's part of them (with ``mesh``, a decoder's sequence-sharded
+        decode layout where ``cfg.decode_seq_shard`` is set)."""
         device = self.weights.emb.device
         if self._mod is E:
-            return E.init_dec_caches(self.cfg, batch, max_seq, device)
-        return T.init_caches(self.cfg, batch, max_seq, device)
+            return E.init_dec_caches(self.cfg, batch, max_seq, device, tp=self.tp)
+        return T.init_caches(self.cfg, batch, max_seq, device, tp=self.tp, mesh=mesh)
+
+    def _tp(self, kw: dict) -> dict:
+        return kw if self.tp is None else {"tp": self.tp, **kw}
+
+    def shard(self, mesh, rules) -> "Model":
+        """This rank's model over ``mesh``'s "model" axis under ``rules``
+        (``sharding.rules.ShardingRules``): a Model holding its shards of
+        these weights (``sharding.tp.shard_params``), whose ``tp``
+        (``sharding.tp.TPContext``, derived as the train step derives it:
+        ``train.loop.model_tp``) its entry points pass on. Itself where
+        the axis has one rank."""
+        from repro_torch.sharding.tp import shard_params
+        from repro_torch.train.loop import model_tp
+
+        tp = model_tp(self, mesh, rules)[3]
+        if tp is None:
+            return self
+        out = Model(self.cfg, device="meta" if self.weights.emb.is_meta else
+                    self.weights.emb.device, params=shard_params(self.params, tp))
+        out.tp = tp
+        return out
 
 
 def build_model(cfg: ModelConfig, device="cuda",

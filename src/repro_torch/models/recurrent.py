@@ -13,8 +13,8 @@
 Every block applies over a full sequence from an optional carried state and
 returns ``(y, new_state)``; a decode step is the same call on one token.
 
-Under tensor parallelism (``tp=``, a ``sharding.tp.TPContext``; the
-training forward, no carried state) each block runs on this rank's shards
+Under tensor parallelism (``tp=``, a ``sharding.tp.TPContext``; training,
+prefill and decode alike) each block runs on this rank's shards
 of its ``ffn``-split weights (:func:`tp_split`): the input enters the model
 group, the up-projections are column-parallel, the weights split on their
 input dimension and replicated on their output give partial sums of which
@@ -22,6 +22,9 @@ this rank takes its own part (``tp.own``), and the down-projection is
 row-parallel and leaves the group. The RG-LRU is per channel; the mLSTM
 and sLSTM run this rank's heads where the axis divides them, else every
 head on every rank. No collective runs inside a recurrence's time loop.
+A carried state is this rank's part: the RG-LRU's channels, the mLSTM's
+and sLSTM's heads where the axis divides them (the state constructors'
+``width``/``n_heads``), else the whole state.
 With ``tp=None`` every op is the unsharded one, in the same order.
 """
 from __future__ import annotations
@@ -201,10 +204,12 @@ def apply_rglru(cfg: RGLRUConfig, params, x: torch.Tensor, state=None, tp=None):
     return y, {"h": h[:, -1], "conv": conv_state}
 
 
-def rglru_state(cfg: RGLRUConfig, batch: int, dtype, device) -> dict:
+def rglru_state(cfg: RGLRUConfig, batch: int, dtype, device, width: Optional[int] = None) -> dict:
+    """The zero state of ``width`` channels (default: ``d_rnn``)."""
+    w = cfg.d_rnn if width is None else width
     return {
-        "h": torch.zeros((batch, cfg.d_rnn), dtype=torch.float32, device=device),
-        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_rnn), dtype=dtype, device=device),
+        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype, device=device),
     }
 
 
@@ -370,9 +375,10 @@ def mlstm_state(cfg: MLSTMConfig, batch: int, device, n_heads: Optional[int] = N
     }
 
 
-def step_mlstm(cfg: MLSTMConfig, params, x1: torch.Tensor, state: dict):
-    """Decode step: x1 (B, 1, D)."""
-    return apply_mlstm(dataclasses.replace(cfg, chunk=1), params, x1, state)
+def step_mlstm(cfg: MLSTMConfig, params, x1: torch.Tensor, state: dict, tp=None):
+    """Decode step: x1 (B, 1, D); with ``tp``, on this rank's shards and
+    its part of the state."""
+    return apply_mlstm(dataclasses.replace(cfg, chunk=1), params, x1, state, tp=tp)
 
 
 # =====================================================================

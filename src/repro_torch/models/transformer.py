@@ -10,6 +10,11 @@ block's state), both in that order. With ``cfg.decode_seq_shard`` and a
 mesh, ``decode_step`` runs the sequence-sharded split-KV decode on this
 rank's shards (:func:`shard_caches`, :func:`decode_rows`). Without caches,
 each cycle of layers runs under ``cfg.remat`` (``models.remat``).
+
+``tp=`` (``sharding.tp.TPContext``) runs every entry point on this rank's
+shards of the weights over the mesh's "model" axis: the training forward,
+and serving, whose caches are this rank's part (:func:`init_caches`) and
+whose logits are gathered whole over the vocab split.
 """
 from __future__ import annotations
 
@@ -189,10 +194,24 @@ def cross_entropy(cfg, params, logits: torch.Tensor, labels: torch.Tensor, tp=No
     return -torch.sum(ll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
-def init_caches(cfg, batch: int, max_seq: int, device) -> list[dict]:
+def _seq_shards(cfg, mesh) -> int:
+    """The ranks of the sequence-sharded decode's axis (1: not sharded)."""
+    if mesh is None or not cfg.decode_seq_shard:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(cfg.decode_seq_axis))
+
+
+def init_caches(cfg, batch: int, max_seq: int, device, tp=None, mesh=None) -> list[dict]:
+    """Empty decode caches of ``batch`` rows. With ``tp``, this rank's part
+    (``blocks.block_cache``): a prefill's layout. With ``mesh`` too and
+    ``cfg.decode_seq_shard``, the sequence-sharded decode's layout (each
+    K/V cache this rank's shard of the slots, every KV head)."""
     dtype = cfg.torch_dtype
-    return [B.block_cache(kind, cfg, batch, max_seq, dtype, device)
-            for kind in layer_kinds(cfg)]
+    kinds = layer_kinds(cfg)
+    dims = tp.dims["layers"] if tp is not None else [None] * len(kinds)
+    seq = _seq_shards(cfg, mesh)
+    return [B.block_cache(kind, cfg, batch, max_seq, dtype, device, tp, d, seq)
+            for kind, d in zip(kinds, dims)]
 
 
 def decode_rows(cfg, mesh, batch: int) -> slice:
@@ -209,19 +228,27 @@ def decode_rows(cfg, mesh, batch: int) -> slice:
     return slice(r * (batch // n), (r + 1) * (batch // n))
 
 
-def shard_caches(cfg, caches: list[dict], mesh) -> list[dict]:
-    """This rank's shards of full decode caches (a prefill's) for
-    ``decode_step(..., mesh=mesh)`` with ``cfg.decode_seq_shard``: every
-    entry's rows by :func:`decode_rows`, and a K/V cache's slots (with
-    their ``slot_pos``) by the rank's contiguous shard over
-    ``cfg.decode_seq_axis``. Fresh tensors: the decode writes into them."""
+def shard_caches(cfg, caches: list[dict], mesh, tp=None) -> list[dict]:
+    """This rank's shards of a prefill's decode caches (a decoder's, or an
+    encoder-decoder's self-attention caches) for ``decode_step(...,
+    mesh=mesh)`` with ``cfg.decode_seq_shard``: a K/V
+    cache's slots (with their ``slot_pos``) by the rank's contiguous shard
+    over ``cfg.decode_seq_axis``. Without ``tp`` the caches are whole and
+    every entry's rows are taken by :func:`decode_rows`; with ``tp`` they
+    are a prefill's on this rank's rows and shards (:func:`prefill`), and
+    a K/V cache of this rank's KV heads is gathered over the model group
+    first. Fresh tensors: the decode writes into them."""
     ax = cfg.decode_seq_axis
     n = mesh.size(mesh.mesh_dim_names.index(ax))
     r = mesh.get_local_rank(ax)
+    kinds = ["attn+mlp"] * len(caches) if cfg.arch_type == "encdec" else layer_kinds(cfg)
     out = []
-    for kind, c in zip(layer_kinds(cfg), caches):
-        rows = decode_rows(cfg, mesh, next(iter(c.values())).shape[0])
+    for kind, c in zip(kinds, caches):
+        b = next(iter(c.values())).shape[0]
+        rows = slice(0, b) if tp is not None else decode_rows(cfg, mesh, b)
         if kind in B.ATTN_KINDS:
+            if tp is not None and c["k"].shape[2] < cfg.n_kv:
+                c = {k: v if k == "slot_pos" else tp.gather(v, dim=2) for k, v in c.items()}
             s_c = c["k"].shape[1]
             if s_c % n:
                 raise ValueError(f"a cache of {s_c} slots does not split over {n} {ax!r} ranks")
@@ -232,22 +259,34 @@ def shard_caches(cfg, caches: list[dict], mesh) -> list[dict]:
     return out
 
 
+def _whole_logits(cfg, params, logits: torch.Tensor, tp) -> torch.Tensor:
+    """Serving's logits over the whole vocab: this rank's range gathered
+    over the model group where ``vocab`` is split."""
+    return tp.gather(logits, dim=-1) if _vocab_split(cfg, params, tp) else logits
+
+
 def prefill(cfg, params, tokens: torch.Tensor, max_seq: int,
-            prefix_embeds: Optional[torch.Tensor] = None, mesh=None):
-    caches = init_caches(cfg, tokens.shape[0], max_seq, params["emb"].device)
+            prefix_embeds: Optional[torch.Tensor] = None, mesh=None, tp=None):
+    """(last logits (B, 1, V), caches). With ``tp``, on this rank's shards
+    (``params``) and rows (``tokens``): the caches are this rank's part,
+    a prefill's layout (:func:`init_caches`; :func:`shard_caches` lays
+    them out for the sequence-sharded decode)."""
+    caches = init_caches(cfg, tokens.shape[0], max_seq, params["emb"].device, tp)
     logits, caches, _ = forward(
         cfg, params, tokens, prefix_embeds=prefix_embeds, caches=caches,
-        mesh=mesh, logits_positions="last",
+        mesh=mesh, logits_positions="last", tp=tp,
     )
-    return logits, caches
+    return _whole_logits(cfg, params, logits, tp), caches
 
 
 def decode_step(cfg, params, caches: list[dict], tokens1: torch.Tensor, pos: torch.Tensor,
-                mesh=None):
+                mesh=None, tp=None):
     """tokens1: (B, 1) new token ids; pos: (B,) absolute positions. Writes
-    the new token's K/V into ``caches`` and returns the per-layer caches,
-    a recurrent layer's state anew."""
-    x = embed_tokens(cfg, params, tokens1)
-    x, new_caches, _ = _run_layers(cfg, params, x, pos, caches=caches, decode=True, mesh=mesh)
+    the new token's K/V into ``caches`` and returns (logits, the per-layer
+    caches, a recurrent layer's state anew). With ``tp``, on this rank's
+    shards and its part of the caches; the logits are whole."""
+    x = embed_tokens(cfg, params, tokens1, tp)
+    x, new_caches, _ = _run_layers(cfg, params, x, pos, caches=caches, decode=True, mesh=mesh,
+                                   tp=tp)
     x = apply_norm(cfg.norm_kind, params["final_norm"], x)
-    return logits_from(cfg, params, x), new_caches
+    return _whole_logits(cfg, params, logits_from(cfg, params, x, tp), tp), new_caches

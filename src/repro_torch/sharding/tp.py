@@ -32,6 +32,12 @@ whose gradient is already summed upstream. Each takes its part as
 ``groups`` contiguous blocks where a dimension stacks several fields (the
 ``(z, i, f, o)`` gates of the sLSTM).
 
+Serving runs the same layout under ``torch.inference_mode()``, where the
+autograd functions run their forward alone; :meth:`TPContext.gather` is
+the one collective serving adds: every rank's part of a split dimension
+concatenated (the query heads of the sequence-sharded decode, the vocab
+ranges of the logits).
+
 The residual stream, the norms and every replicated weight's gradient are
 then the same on every model rank. The models take the context as a
 ``tp=`` keyword (None: a model axis of one rank, today's ops in today's
@@ -148,6 +154,13 @@ class TPContext:
         split dimension."""
         return self.rank * local
 
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every rank's ``x`` concatenated on ``dim`` in rank order: the
+        whole of a dimension split over the group (no gradient)."""
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
     def all_max(self, x: torch.Tensor) -> torch.Tensor:
         """The element-wise maximum over the group (no gradient)."""
         x = x.detach().clone()
@@ -188,10 +201,6 @@ def gather_params(tree, tp: Optional[TPContext]):
         return tree
 
     def one(t, d):
-        if t is None or d is None:
-            return t
-        parts = [torch.empty_like(t) for _ in range(tp.size)]
-        dist.all_gather(parts, t.contiguous(), group=tp.group)
-        return torch.cat(parts, dim=d)
+        return t if t is None or d is None else tp.gather(t, d)
 
     return tree_map(one, tree, tp.dims)

@@ -107,6 +107,17 @@ def build_shardings(model, mesh, rules: ShardingRules):
     return shapes, logical, build_param_specs(mesh, rules, shapes, logical)
 
 
+def model_tp(model, mesh, rules: ShardingRules):
+    """(shapes, logical axes, specs) of :func:`build_shardings` and the
+    ``sharding.tp.TPContext`` of ``mesh``'s "model" axis under them (None
+    where it has one rank): the one way that training and serving
+    (``Model.shard``) derive which dimension of each parameter a model
+    rank splits."""
+    shapes, logical, specs = build_shardings(model, mesh, rules)
+    tp = tp_context(mesh, port_layout(model.cfg, _map_specs(split_dim, specs), _local_dim))
+    return shapes, logical, specs, tp
+
+
 def _dp(mesh) -> tuple[tuple, int]:
     ba = batch_axes_for_mesh(mesh)
     sizes = axis_sizes(mesh)
@@ -299,7 +310,7 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
     batch)``; manual-dp: ``step(params, opt_state, err, batch)``; ``batch``
     is this rank's slice of the global batch."""
     cfg = model.cfg
-    shapes, logical, param_sh = build_shardings(model, mesh, rules)
+    shapes, logical, param_sh, tp = model_tp(model, mesh, rules)
     opt_sh = _opt_shardings(mesh, rules, shapes, logical, param_sh, tcfg.zero1)
     ba, dp = _dp(mesh)
     batch_spec = (_batch_entry(ba) if ba else None,)
@@ -308,7 +319,6 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
     moe_dp = tcfg.mode == "auto" and dp > 1 and "attn+moe" in cfg.pattern
     batch_group, batch_rank = _batch_group(mesh, ba)
     moe_group = batch_group if moe_dp else None
-    tp = tp_context(mesh, port_layout(cfg, _map_specs(split_dim, param_sh), _local_dim))
     # ZeRO-1 placements of m/v (and, for ZeRO-2, of the gradients): the
     # reference's zero1 specs whatever tcfg.zero1 says, as its zero2 uses them
     zero_sh = _opt_shardings(mesh, rules, shapes, logical, param_sh, True)["m"]

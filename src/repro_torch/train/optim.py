@@ -81,7 +81,8 @@ def clip_by_global_norm(grads, max_norm: float, norm=None):
     gradients sum their squares over the data group)."""
     norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
-    return tree_map(lambda g: g.to(torch.float32) * scale, grads), norm
+    # None: a layer whose ZeRO-2 gradient lives on another data rank
+    return tree_map(lambda g: None if g is None else g.to(torch.float32) * scale, grads), norm
 
 
 def adamw_update(cfg: AdamWConfig, params, grads, state, update_shardings=None, norm=None):

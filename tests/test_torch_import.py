@@ -45,6 +45,29 @@ def test_training_slice_modules_listed():
         assert f"repro_torch.{name}" in MODULES
 
 
+def test_dryrun_slice_modules_listed():
+    for name in ("launch.shapes", "launch.steps", "launch.dryrun", "roofline",
+                 "roofline.analysis", "roofline.op_count"):
+        assert f"repro_torch.{name}" in MODULES
+
+
+def test_module_trees_differ_only_by_files_needing_no_port():
+    """Every module of the reference has a counterpart of its own name in
+    the port, but three: ``runtime.jax_compat`` bridges JAX versions,
+    ``kernels.ref``'s plain versions are the tests' oracles, and
+    ``engine.jax_ops`` is ported as ``engine.torch_ops``; the HLO parse's
+    counterpart is ``roofline.op_count``."""
+    def tree(root: str) -> set:
+        return {".".join(p.relative_to(SRC / root).with_suffix("").parts).removesuffix("__init__")
+                .rstrip(".") for p in (SRC / root).rglob("*.py")}
+
+    ref, port = tree("repro"), tree("repro_torch")
+    assert port == {m.removeprefix("repro_torch").lstrip(".") for m in MODULES}
+    assert ref - port == {"runtime.jax_compat", "kernels.ref", "engine.jax_ops",
+                          "roofline.hlo_parse"}
+    assert {"engine.torch_ops", "roofline.op_count"} <= port
+
+
 def test_import_without_jax_loads_no_reference_module():
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -163,6 +163,17 @@ def test_clip_and_adamw_match_reference(dtype):
         rp, rstate = rnew, rstate_new
 
 
+def test_clip_passes_layers_of_another_zero2_rank():
+    """Under ZeRO-2 a layer owned whole by another data rank has no
+    gradient on this one (None): the clip scales the others by the global
+    norm it is given and passes the None on (the production dry-run's
+    internvl2-76b train cell, 80 layers over 16 data ranks)."""
+    out, norm = PO.clip_by_global_norm({"a": torch.full((3,), 2.0), "b": None}, 1.0,
+                                       norm=torch.tensor(4.0))
+    assert out["b"] is None and float(norm) == 4.0
+    torch.testing.assert_close(out["a"], torch.full((3,), 0.5))
+
+
 # ------------------------------------------------------------------ data
 
 def test_token_dataset_bit_for_bit_and_restartable():
