@@ -58,6 +58,13 @@ graph:
   to the kernel's), Fig. 5/6 (global PageRank through the kernel under each
   of the eight orders of ``core.baselines.all_reorderers``) and the
   priority-scheduled block engine on global PageRank and the SSSP batch;
+* the graph examples (``phase_examples``): the twins of the reference's
+  ``examples/quickstart.py`` (GoGraph, then sync, async and async GoGraph
+  PageRank at 8,000 vertices) and ``examples/graph_end2end.py --pallas
+  --inject-failure`` (``examples/graph_end2end_torch.py --kernel``: 50,000
+  vertices, every macro-step through ``run_async_block_kernel`` on the
+  sweep kernel, a failure restored from its checkpoint), at their
+  defaults, held to the same runs on the CPU;
 * the LM serving paths (``phase_lm``; no kernel of their own: the
   reference computes them in ``jnp``) — the reduced configurations of every
   family (dense, MoE, recurrent, encoder-decoder) in f32 held to the CPU, a
@@ -86,7 +93,9 @@ graph:
   those four ranks against the unsharded one, and gemma3-4b at full width
   through it on the one NCCL rank; tensor and expert parallelism on the
   four ranks for every family (`TRAIN_TP`), each cut in f32 against one
-  rank and timed in bf16 (``[train tp]`` lines);
+  rank and timed in bf16 (``[train tp]`` lines), and olmo-1b's cut once
+  more on (4, 1) with 4 microbatches of 2 rows, which do not divide over
+  the 4 data ranks;
 * serving with the weights split over "model" on the same four ranks
   (`SERVE_TP`: gemma3-4b's 5:1 cycle through the sequence-sharded decode
   with the heads split, qwen2-moe-a2.7b's experts and KV heads over
@@ -109,13 +118,15 @@ output is the kernels' JSON record, the last line the device JSON. Detailed
 per-case results go to ``chiprun_out/chip_smoke.json``. With no CUDA device
 it exits non-zero before printing any result. ``--only-kernels`` stops after
 the kernel-vs-plain phase; ``--only-lm`` and ``--only-train`` run the
-environment phase and the LM or the training phase only.
+environment phase and the LM or the training phase only;
+``--only-examples`` builds the kernels and runs the examples' phase only.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
 import importlib
+import importlib.util
 import itertools
 import json
 import math
@@ -2034,6 +2045,115 @@ def phase_priority(ctx: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the graph examples
+# ---------------------------------------------------------------------------
+
+# the twins of the reference's examples run here, at their defaults:
+# (script, run() keywords). graph_end2end's --kernel --inject-failure is the
+# only example path through a kernel (gs_multisweep, one sweep a launch)
+EXAMPLES = (("quickstart", {}),
+            ("graph_end2end", {"kernel": True, "inject_failure": True}))
+EXAMPLE_SUM_TOL = {"atol": 1e-5, "rtol": 1e-4}  # PageRank states, card against CPU
+
+
+def _example(name: str):
+    """``examples/<name>_torch.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", os.path.join(ROOT, "examples", f"{name}_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_runs(device: str, on_run=None) -> dict:
+    """Each of EXAMPLES's ``run(...)`` on ``device`` at its defaults, its
+    temporary files (checkpoints, the trace sink) under ``build/``: the
+    results, the printed lines and the seconds of each; ``on_run(name)``
+    before each run."""
+    import tempfile
+
+    out = {}
+    old = tempfile.tempdir
+    tempfile.tempdir = os.path.join(_scratch(), "examples_tmp")
+    os.makedirs(tempfile.tempdir, exist_ok=True)
+    try:
+        for name, kw in EXAMPLES:
+            lines = []
+            if on_run is not None:
+                on_run(name)
+            t0 = time.perf_counter()
+            res = _example(name).run(device=device, echo=lambda *a, **k: lines.extend(
+                k.get("sep", " ").join(str(x) for x in a).split("\n")), **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out[name] = {"res": res, "lines": lines, "wall_s": time.perf_counter() - t0}
+    finally:
+        tempfile.tempdir = old
+    return out
+
+
+def _hold_examples(card: dict, cpu: dict) -> dict:
+    """The card's example results against the CPU's: M/|E| exactly,
+    PageRank rounds within one and states within EXAMPLE_SUM_TOL, the
+    paper's result on both, the fault log line for line."""
+    rows = {}
+    q, qc = card["quickstart"]["res"], cpu["quickstart"]["res"]
+    diffs = {k: float(np.abs(np.asarray(q["x_" + k]) - np.asarray(qc["x_" + k])).max())
+             for k in ("sync", "async", "gograph")}
+    rows["quickstart"] = {
+        "rounds": {k: q["rounds_" + k] for k in ("sync", "async", "gograph")},
+        "rounds_cpu": {k: qc["rounds_" + k] for k in ("sync", "async", "gograph")},
+        "m": [q["m_default"], q["m_gograph"]], "max_abs_diff": diffs, "err": q["err"],
+        "ok": bool(q["m_default"] == qc["m_default"] and q["m_gograph"] == qc["m_gograph"]
+                   and all(abs(q["rounds_" + k] - qc["rounds_" + k]) <= 1 for k in diffs)
+                   and all(np.allclose(q["x_" + k], qc["x_" + k], **EXAMPLE_SUM_TOL)
+                           for k in diffs)
+                   and q["rounds_gograph"] < q["rounds_async"]
+                   and qc["rounds_gograph"] < qc["rounds_async"])}
+    e, ec = card["graph_end2end"]["res"], cpu["graph_end2end"]["res"]
+    rows["graph_end2end"] = {
+        "rounds": e["rounds"], "rounds_cpu": ec["rounds"], "log": e["log"], "err": e["err"],
+        "max_abs_diff": float(np.abs(e["x"] - ec["x"]).max()),
+        "ok": bool(e["converged"] and ec["converged"] and e["log"] == ec["log"]
+                   and e["failures"] == ec["failures"] == 1 and e["m"] == ec["m"]
+                   and abs(e["rounds"] - ec["rounds"]) <= 1
+                   and np.allclose(e["x"], ec["x"], **EXAMPLE_SUM_TOL))}
+    return rows
+
+
+def phase_examples() -> None:
+    """The twins of the reference's graph examples on the card at their
+    defaults: ``examples/quickstart_torch.py`` (GoGraph, then sync, async
+    default-order and async GoGraph PageRank at 8,000 vertices, the
+    torch-ops backends as the reference's run jax) and
+    ``examples/graph_end2end_torch.py --kernel --inject-failure`` (50,000
+    vertices, each macro-step through ``run_async_block_kernel``, a
+    failure injected at step 1 and restored from the checkpoint), held to
+    the same runs on the CPU after them (`_hold_examples`). The
+    gs_multisweep launches of the kernel run are counted (set to 0 just
+    before, read just after) and must be more than none."""
+    t_phase = time.perf_counter()
+    gs = kmod("gs_sweep")
+    card = _example_runs(DEVICE, on_run=lambda name: gs.reset_launches())
+    launches = gs.launches  # the last example's: graph_end2end --kernel
+    cpu = _example_runs("cpu")
+    rows = _hold_examples(card, cpu)
+    rows["graph_end2end"]["gs_multisweep_launches"] = launches
+    for name, _ in EXAMPLES:
+        for line in card[name]["lines"]:
+            log(f"[example {name}] {line}")
+        row = {**rows[name], "wall_s": card[name]["wall_s"], "cpu_wall_s": cpu[name]["wall_s"]}
+        log(f"[examples] {name} {json.dumps(row)}")
+        RECORD["phases"][f"example_{name}"] = row
+    RECORD["phases"]["examples_phase_s"] = time.perf_counter() - t_phase
+    log(f"[examples] phase {RECORD['phases']['examples_phase_s']:.1f} s")
+    bad = [name for name, _ in EXAMPLES if not rows[name]["ok"]]
+    if bad or launches == 0:
+        raise AssertionError(f"examples against the CPU: {bad}; gs_multisweep launches "
+                             f"{launches}")
+
+
+# ---------------------------------------------------------------------------
 # the LM serving paths
 # ---------------------------------------------------------------------------
 
@@ -2871,7 +2991,8 @@ SEQ_SHARD_F32 = 1e-4       # f32 seq-sharded against unsharded: relative norm a 
 # run), then in bf16 timed with one step profiled. The arch's
 # TRAIN_OVERRIDES where `overrides` (olmo: microbatches 2, zero1). Where
 # `save`, the bf16 state is then checkpointed (`_tp_save`). An
-# encoder-decoder's rows carry `frames` stub frames each.
+# encoder-decoder's rows carry `frames` stub frames each; `train` adds
+# TrainConfig fields; `tag` names a second cut of one arch.
 TRAIN_TP = (
     dict(arch="olmo-1b", layers=2, mesh=(2, 2), rows=4, seq=4096, steps=3, overrides=True,
          save=True),
@@ -2888,10 +3009,14 @@ TRAIN_TP = (
     # the whole 4 + 4 layers; microbatches 4
     dict(arch="whisper-tiny", layers=8, mesh=(2, 2), rows=8, seq=448, frames=1500, steps=2,
          overrides=True),
+    # microbatches whose rows do not divide over the data ranks: 4 of 2 rows
+    # over 4 ranks, which hold 1, 1, 0, 0 rows of each (padded to one)
+    dict(arch="olmo-1b", tag="olmo-1b-uneven", layers=2, mesh=(4, 1), rows=8, seq=4096,
+         steps=2, overrides=False, train=dict(microbatches=4, zero1=True)),
 )
 TRAIN_TP_LOSS_RTOL = 1e-6  # f32 losses, mesh against one rank
 TRAIN_TP_GRAD = 1e-4       # f32 first-step gradient: each leaf's relative norm of the difference
-TRAIN_TP_BF16_STEPS = 3    # timed bf16 steps (the first warms up), then one profiled
+TRAIN_TP_BF16_STEPS = 2    # timed bf16 steps (the first warms up), then one profiled
 
 
 def _detached(model) -> dict:
@@ -3428,7 +3553,8 @@ def _tp_cut(spec: dict, dtype: str):
 
     cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=spec["layers"], dtype=dtype)
     over = get_train_overrides(spec["arch"]) if spec["overrides"] else {}
-    tcfg = TrainConfig(opt=optim.AdamWConfig(**TRAIN_REDUCED_OPT), **over)
+    tcfg = TrainConfig(opt=optim.AdamWConfig(**TRAIN_REDUCED_OPT),
+                       **{**over, **spec.get("train", {})})
     model = build_model(cfg, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(5))
     return cfg, tcfg, model
 
@@ -3526,30 +3652,34 @@ def _tp_run(spec: dict, rank: int) -> dict:
     compared there; in bf16, TRAIN_TP_BF16_STEPS timed steps, one more
     under the profiler (host time in gloo's collectives against the step),
     this process's peak memory, then on rank 0 the same steps on one rank
-    (s a step and peak, beside the mesh's)."""
+    (s a step and peak, beside the mesh's). Where the microbatches' rows do
+    not divide over the data ranks, the first-step gradient is held by its
+    norm (each step's, from the step's metrics): the leaf by leaf check
+    takes every rank's rows as an even part of the batch."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.layers import tree_leaves
     from repro_torch.sharding.tp import gather_params
 
-    tag = f"tp.{spec['arch']}"
+    tag = f"tp.{spec.get('tag', spec['arch'])}"
     nd, nm = spec["mesh"]
     mesh = make_debug_mesh(n_data=nd, n_model=nm, device_type=DEVICE)
     out = {}
     cfg, tcfg, model = _tp_cut(spec, "float32")
     ds = _tp_data(cfg, spec, mesh, tcfg.row_microbatches)
+    uneven = ds.shard_rows * nd > spec["rows"] // tcfg.row_microbatches
     t0 = time.perf_counter()
     params0, opt0 = _tp_shards(model, tcfg, mesh)
     run = _train_run(model, tcfg, ds, spec["steps"], mesh=mesh, params=params0, opt=opt0)
-    sh, losses = run["shardings"], run["loss"]
+    sh, losses, norms = run["shardings"], run["loss"], run["grad_norm"]
     tp = sh["tp"]
     # the mesh's parameters whole on the host (rank 0 compares them), and
     # its state freed before the gradient's pass: four ranks share the card
     gathered = _host_leaves(gather_params(run["params"], tp), rank == 0)
     del run, opt0
-    grads = _tp_grads(model, params0, ds(0), tp, mesh.get_group("data"), tcfg.microbatches,
-                      keep=rank == 0)
+    grads = None if uneven else _tp_grads(model, params0, ds(0), tp, mesh.get_group("data"),
+                                          tcfg.microbatches, keep=rank == 0)
     dropped = (_dropped_share(model, params0, _tp_data(cfg, spec)(0), tp)
                if cfg.moe_experts else None)
     out[f"{tag}.f32_mesh_s"] = np.asarray(time.perf_counter() - t0)
@@ -3562,11 +3692,15 @@ def _tp_run(spec: dict, rank: int) -> dict:
         model1 = _tp_cut(spec, "float32")[2]
         ds1 = _tp_data(cfg, spec)
         one = _train_run(model1, tcfg, ds1, spec["steps"], track=True)
-        g1 = _grad_of(model1, ds1(0), tcfg.microbatches)
         row = {"loss_mesh": losses, "loss_one": one["loss"],
                "loss_max_rel": max(abs(a / b - 1) for a, b in zip(losses, one["loss"])),
-               "grad_max_leaf_rel": max(((a - b.cpu()).norm() / b.norm().cpu().clamp_min(1e-30))
-                                        .item() for a, b in zip(grads, g1))}
+               "grad_norm_max_rel": max(abs(a / b - 1) for a, b in zip(norms, one["grad_norm"]))}
+        g1 = None
+        if grads is not None:
+            g1 = _grad_of(model1, ds1(0), tcfg.microbatches)
+            row["grad_max_leaf_rel"] = max(
+                ((a - b.cpu()).norm() / b.norm().cpu().clamp_min(1e-30)).item()
+                for a, b in zip(grads, g1))
         if cfg.moe_experts:
             row["dropped_mesh"] = dropped
             row["dropped_one"] = _dropped_share(model1, _detached(model1), ds1(0))
@@ -3584,7 +3718,8 @@ def _tp_run(spec: dict, rank: int) -> dict:
         row.update(param_max_abs_diff=dmax, param_max_abs_diff_clear=clear_max,
                    param_bound=bound, entries=entries, entries_excused=excused)
         row["ok"] = bool(row["loss_max_rel"] <= TRAIN_TP_LOSS_RTOL
-                         and row["grad_max_leaf_rel"] <= TRAIN_TP_GRAD
+                         and row["grad_norm_max_rel"] <= TRAIN_TP_GRAD
+                         and row.get("grad_max_leaf_rel", 0.0) <= TRAIN_TP_GRAD
                          and clear_max <= TRAIN_PARAM_ATOL and dmax <= bound
                          and (not cfg.moe_experts or row["dropped_mesh"] == row["dropped_one"]))
         out[f"{tag}.f32"] = np.asarray(json.dumps(row))
@@ -4150,12 +4285,13 @@ def _tp_rows(ranks: list) -> list:
     share on every rank; ``[train tp]`` lines."""
     rows = []
     for spec in TRAIN_TP:
-        tag = f"tp.{spec['arch']}"
+        tag = f"tp.{spec.get('tag', spec['arch'])}"
         f32 = json.loads(str(ranks[0][f"{tag}.f32"]))
         bf16 = [json.loads(str(r[f"{tag}.bf16"])) for r in ranks]
         steady = [float(np.median(b["s"][1:])) for b in bf16]
         row = {"arch": spec["arch"], "layers": spec["layers"], "mesh": list(spec["mesh"]),
-               "tokens": [spec["rows"], spec["seq"]], "reduced": _tp_reduced(spec),
+               "tokens": [spec["rows"], spec["seq"]], "train": spec.get("train", {}),
+               "reduced": _tp_reduced(spec),
                "card": RECORD.get("nvidia_smi"),
                "backend": "gloo, four ranks on one card",
                "f32": f32, "f32_mesh_s": float(ranks[0][f"{tag}.f32_mesh_s"]),
@@ -4315,6 +4451,10 @@ def main() -> int:
         _write_record(t0)
         return 0
     phase_build()
+    if "--only-examples" in sys.argv[1:]:
+        phase_examples()
+        _write_record(t0)
+        return 0
     phase_kernels()
     if "--only-kernels" in sys.argv[1:]:
         return 0
@@ -4325,9 +4465,10 @@ def main() -> int:
     phase_fig8(ctx)
     phase_orders(ctx)
     phase_priority(ctx)
-    del ctx  # the graph phases' device memory, before the LM's
+    del ctx  # the graph phases' device memory, before the examples' and the LM's
     gc.collect()
     torch.cuda.empty_cache()
+    phase_examples()
     phase_lm()
     gc.collect()
     torch.cuda.empty_cache()

@@ -7,17 +7,23 @@ fixed successor "grammar" (with probability ``structure`` token t+1 is the
 successor of token t, else a uniform jump) so losses are learnable.
 
 Batches are tensors on an explicit device (the card unless the caller asks
-for the CPU). With a mesh, each data-parallel rank takes its contiguous
-slice of the global batch: rank r of R data ranks (the mesh's "pod" and
-"data" axes, pod major) gets rows [r * B / R, (r + 1) * B / R). With
-``microbatches`` nm > 1 it takes its slice of each of the nm contiguous
-microbatches of the global batch instead, as the reference's step splits
-the global batch (``reshape(nm, B // nm)``) before it shards each
-microbatch over the data ranks: the train step's contiguous chunks of
-the rank's rows are then its parts of the reference's microbatches (what
-a statistic over a microbatch, the MoE's aux loss, needs). Each batch
-says which layout it has (:class:`TokenBatch`), and a data-parallel train
-step refuses a batch laid out for another count than its own.
+for the CPU). With a mesh, each data-parallel rank (the mesh's "pod" and
+"data" axes, pod major) takes its part of each of the ``microbatches`` nm
+contiguous microbatches of the global batch, as the reference's step
+splits the global batch (``reshape(nm, B // nm)``) before GSPMD shards
+each microbatch over the data ranks: a microbatch of ``b = B / nm`` rows
+is cut into shards of ``c = ceil(b / R)`` rows over R ranks, and rank r
+holds rows ``[r c, min(b, (r + 1) c))`` of every microbatch, which can be
+none (GSPMD pads the shard; the train step pads the rank's part to ``c``
+rows that weigh nothing). With nm = 1 that is rank r's contiguous
+``B / R`` rows. The train step's contiguous chunks of the rank's rows are
+then its parts of the reference's microbatches (what a statistic over a
+microbatch, the MoE's aux loss, needs). The layouts the reference refuses
+are refused: a global batch that does not split into nm microbatches
+(its reshape) or over the R data ranks (its input's batch sharding).
+Each batch says which layout it has (:class:`TokenBatch`), and a
+data-parallel train step refuses a batch laid out for another count than
+its own.
 """
 from __future__ import annotations
 
@@ -39,8 +45,8 @@ class TokenDatasetConfig:
 
 
 def _data_rank(mesh) -> tuple[int, int]:
-    """(this process's rank among the mesh's data-parallel ranks, their
-    count); (0, 1) without a mesh."""
+    """(this process's rank among the mesh's data-parallel ranks, pod
+    major, and their count); (0, 1) without a mesh."""
     if mesh is None:
         return 0, 1
     sizes = axis_sizes(mesh)
@@ -51,11 +57,30 @@ def _data_rank(mesh) -> tuple[int, int]:
     return rank, count
 
 
+def shard_rows(global_batch: int, microbatches: int, count: int,
+               rank: int) -> tuple[int, int]:
+    """(rows that data rank ``rank`` of ``count`` holds of each of the
+    global batch's ``microbatches``, the rows of a shard, ``ceil(b /
+    count)`` of a microbatch's ``b``), the layout of the module docstring;
+    a ValueError where the reference refuses the layout."""
+    if microbatches < 1 or global_batch % microbatches:
+        raise ValueError(f"global batch {global_batch} does not split into "
+                         f"{microbatches} microbatches")
+    if global_batch % count:
+        raise ValueError(f"global batch {global_batch} does not split over {count} "
+                         f"data ranks (the batch's sharding over the data axes)")
+    b = global_batch // microbatches
+    c = -(-b // count)
+    return max(0, min(b, (rank + 1) * c) - rank * c), c
+
+
 class TokenBatch(dict):
     """A batch dict that says how its rows are laid out: this rank's parts
-    of ``microbatches`` contiguous microbatches of the global batch."""
+    of ``microbatches`` contiguous microbatches of the global batch, each
+    part padded to ``shard_rows`` rows by the train step."""
 
     microbatches: int = 1
+    shard_rows: int | None = None
 
 
 class TokenDataset:
@@ -77,17 +102,11 @@ class TokenDataset:
             raise RuntimeError("device='cuda' was asked for but no CUDA device is "
                                "available; pass device='cpu'")
         rank, count = _data_rank(mesh)
-        if cfg.global_batch % (count * microbatches):
-            raise ValueError(f"global batch {cfg.global_batch} does not split over "
-                             f"{count} data ranks and {microbatches} microbatches")
-        per = cfg.global_batch // count
-        self.rows = slice(rank * per, (rank + 1) * per)
+        held, self.shard_rows = shard_rows(cfg.global_batch, microbatches, count, rank)
+        mb, lo = cfg.global_batch // microbatches, rank * self.shard_rows
+        self.rows = np.concatenate([np.arange(i * mb + lo, i * mb + lo + held)
+                                    for i in range(microbatches)])
         self.microbatches = microbatches
-        if microbatches > 1 and count > 1:
-            mb, per_mb = cfg.global_batch // microbatches, per // microbatches
-            self.rows = np.concatenate([np.arange(i * mb + rank * per_mb,
-                                                  i * mb + (rank + 1) * per_mb)
-                                        for i in range(microbatches)])
         # a fixed "grammar": each token deterministically suggests a successor
         rng = np.random.default_rng(cfg.seed + 1234)
         self.successor = rng.integers(0, cfg.vocab, size=cfg.vocab)
@@ -126,4 +145,5 @@ class TokenDataset:
         batch = TokenBatch({k: torch.from_numpy(np.ascontiguousarray(v[self.rows])).to(self.device)
                             for k, v in self.arrays(step).items()})
         batch.microbatches = self.microbatches
+        batch.shard_rows = self.shard_rows
         return batch

@@ -4,9 +4,11 @@
 :func:`bsr_spmm` and :func:`gs_sweep` take the reference's arguments
 (without ``interpret``) and derive ``bs`` from the tiles. :func:`pack_algorithm`
 turns an `AlgoInstance` into the ragged flat-BSR operands the sweep kernel
-walks, as torch tensors on the requested device. There is no interpret
-switch: the device the operands live on decides whether a wrapper launches
-its kernel (CUDA) or its plain version (CPU).
+walks, as torch tensors on the requested device.
+:func:`run_async_block_kernel` is the reference's
+``run_async_block_pallas`` shim: the async engine on the sweep kernel.
+There is no interpret switch: the device the operands live on decides
+whether a wrapper launches its kernel (CUDA) or its plain version (CPU).
 """
 from __future__ import annotations
 
@@ -115,3 +117,26 @@ def pack_algorithm(
         "bsr_stats": bsr.stats(),
         "npad": npad,
     }
+
+
+def run_async_block_kernel(
+    algo: AlgoInstance, bs: int = 128, max_iters: int = 500,
+    x_init: np.ndarray | None = None, sweeps_per_call: int = 1,
+    frontier: np.ndarray | None = None, device: str | torch.device = "cuda",
+):
+    """Async engine with the sweep kernel doing each sweep: the port of
+    the reference's ``run_async_block_pallas`` shim, without ``interpret``.
+
+    This is ``run_async_block(algo, backend="kernel")`` on ``device``: on
+    the card every sweep launches ``gs_multisweep`` (``csrc/gs_sweep.cu``;
+    ``sweeps_per_call > 1`` batches that many sweeps into one launch, with
+    the in-kernel convergence test and the active-frontier block skipping;
+    ``frontier`` seeds the dirty bitmap from a vertex-level bool[n] mask);
+    on the CPU the kernel's plain version runs. Neither falls back to the
+    other.
+    """
+    from repro_torch.engine.async_block import run_async_block
+
+    return run_async_block(algo, bs=bs, max_iters=max_iters, x_init=x_init,
+                           backend="kernel", sweeps_per_call=sweeps_per_call,
+                           frontier=frontier, device=device)

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.data.tokens import TokenBatch, _data_rank, shard_rows
 from repro_torch.launch.shapes import SHAPES, WHISPER_ENC_FRAMES, ShapeCell
 from repro_torch.models import blocks as B
 from repro_torch.models import encdec as E
@@ -169,6 +170,19 @@ def _rows(t: torch.Tensor, n: int) -> torch.Tensor:
     return _meta((t.shape[0] // n,) + tuple(t.shape[1:]), t.dtype)
 
 
+def train_rows(ins: dict, microbatches: int, dp: int, rank: int) -> TokenBatch:
+    """Data rank ``rank`` of ``dp``'s part of a train cell's global inputs
+    ``ins`` (the shapes alone), laid out for ``microbatches`` as
+    ``data.tokens.TokenDataset`` lays out its rows: its part of each
+    microbatch (``shard_rows``; none where a microbatch's rows do not reach
+    it), the batch carrying the layout the train step reads."""
+    held, shard = shard_rows(next(iter(ins.values())).shape[0], microbatches, dp, rank)
+    batch = TokenBatch({k: _meta((microbatches * held,) + tuple(t.shape[1:]), t.dtype)
+                        for k, t in ins.items()})
+    batch.microbatches, batch.shard_rows = microbatches, shard
+    return batch
+
+
 def build_cell(cfg: ModelConfig, shape_name: str, mesh, rules: ShardingRules,
                tcfg: Optional[TrainConfig] = None) -> Cell:
     """The cell of ``cfg`` at ``shape_name`` on ``mesh`` (a DeviceMesh over
@@ -193,6 +207,8 @@ def build_cell(cfg: ModelConfig, shape_name: str, mesh, rules: ShardingRules,
         tcfg = tcfg or TrainConfig()
         step, sh = make_train_step(model, mesh, rules, tcfg)
         opt = init_opt_state(params, sh["placements"])
+        rank, count = _data_rank(mesh)
+        batch = train_rows(ins, tcfg.row_microbatches, count, rank)
         return Cell(cfg.name, shape, step, (params, opt, batch),
                     (param_sh, sh["opt"], {k: bspec for k in batch}), notes=notes, tp=tp)
 

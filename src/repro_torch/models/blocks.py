@@ -292,7 +292,7 @@ def attend_decode(cfg, acfg: A.AttnConfig, params, h: torch.Tensor, pos: torch.T
 def block_apply(
     kind: str, cfg, params, x: torch.Tensor, positions: torch.Tensor,
     cache: Optional[dict] = None, decode: bool = False, mesh=None, tp=None,
-    batch_group=None,
+    share=None,
 ):
     """Returns (y, new_cache, aux_loss).
 
@@ -303,8 +303,9 @@ def block_apply(
     ``tp`` (``sharding.tp.TPContext``): this rank's shards of the
     attention, MLP, MoE and recurrent weights, in training, prefill and
     decode alike, the cache this rank's part (:func:`block_cache`); the
-    norms and the residual stream stay replicated. ``batch_group``: the
-    MoE's aux loss is over it (a data-parallel step's batch group).
+    norms and the residual stream stay replicated. ``share``
+    (``sharding.tp.BatchShare``): the MoE's aux loss is over a
+    data-parallel step's global microbatch.
     ``mesh`` serves only the sequence-sharded decode.
     """
     aux = 0.0
@@ -330,7 +331,7 @@ def block_apply(
         h = apply_norm(cfg.norm_kind, params["norm2"], x)
         if kind == "attn+moe":
             y, aux = M.apply_moe(_moe_cfg(cfg), params["moe"], h, tp=tp,
-                                 batch_group=batch_group)
+                                 share=share)
         else:
             y = apply_mlp(_mlp_cfg(cfg), params["mlp"], h, tp=tp)
         return x + checkpoint_name(y, "tp_mlp_out"), new_cache, aux

@@ -186,12 +186,14 @@ def decoder_forward(cfg, params, tokens: torch.Tensor, enc_out: torch.Tensor,
     return logits_from(cfg, params, x, tp), new_caches
 
 
-def loss_fn(cfg, params, batch: dict, mesh=None, tp=None):
+def loss_fn(cfg, params, batch: dict, mesh=None, tp=None, share=None):
     """batch: frames (B,T,D), tokens (B,S), labels (B,S). With ``tp``,
-    this rank's shards of ``params``."""
+    this rank's shards of ``params``; with ``share``, the cross entropy
+    this rank's term of the global microbatch's
+    (``transformer.cross_entropy``)."""
     enc_out = encode(cfg, params, batch["frames"], tp)
     logits, _ = decoder_forward(cfg, params, batch["tokens"], enc_out, tp=tp)
-    ce = cross_entropy(cfg, params, logits, batch["labels"], tp)
+    ce = cross_entropy(cfg, params, logits, batch["labels"], tp, share)
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 

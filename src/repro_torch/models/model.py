@@ -221,13 +221,15 @@ class Model(nn.Module):
         return E.encode(self.cfg, self.params, frames)
 
     def loss_fn(self, batch, mesh=None, params: Optional[dict] = None, tp=None,
-                batch_group=None):
+                share=None):
         """(loss, {"ce", "aux"}) at the model's parameters, or at ``params``
         (a tree of the same layout: a train step's leaves that require
         grad; with ``tp``, a ``sharding.tp.TPContext``, this rank's shards
-        of them over the model axis). ``batch_group``: the MoE's aux loss
-        is over the global batch of that data-parallel group."""
-        kw = {k: v for k, v in (("tp", tp), ("batch_group", batch_group)) if v is not None}
+        of them over the model axis). ``share`` (``sharding.tp.BatchShare``):
+        a data-parallel step's part of a global microbatch; the cross
+        entropy and the MoE's aux loss are then its terms of the global
+        microbatch's."""
+        kw = {k: v for k, v in (("tp", tp), ("share", share)) if v is not None}
         return self._mod.loss_fn(self.cfg, self.params if params is None else params, batch,
                                  mesh=mesh, **kw)
 

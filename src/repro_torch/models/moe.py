@@ -17,7 +17,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import MLPConfig, apply_mlp, init_linear, init_mlp, _normal
-from repro_torch.sharding.tp import batch_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +104,7 @@ def route(cfg: MoEConfig, params, x: torch.Tensor) -> dict:
             "pos": pos, "keep": keep, "onehot": onehot, "capacity": cap}
 
 
-def apply_moe(cfg: MoEConfig, params, x: torch.Tensor, tp=None, batch_group=None):
+def apply_moe(cfg: MoEConfig, params, x: torch.Tensor, tp=None, share=None):
     """x: (B, S, D) -> (y, aux_loss).
 
     With ``tp`` (``sharding.tp.TPContext``) and the experts split over the
@@ -114,8 +113,10 @@ def apply_moe(cfg: MoEConfig, params, x: torch.Tensor, tp=None, batch_group=None
     rank; each rank runs its own experts ``[e0, e1)`` of ``e_padded`` on
     its slice of the dispatch and combine tensors. The routed output and a
     split shared expert are partial sums, added and left through the group
-    once; a replicated part is added after. ``batch_group``: the aux loss's
-    statistics are averaged over it (a data-parallel step's batch group)."""
+    once; a replicated part is added after. ``share``
+    (``sharding.tp.BatchShare``): the aux loss's statistics are over the
+    global microbatch of a data-parallel step, this rank's pad rows left
+    out."""
     b_orig, s_orig, d = x.shape
     x = x.reshape(*group_shape(cfg, b_orig, s_orig), d)
     r = route(cfg, params, x)
@@ -166,16 +167,16 @@ def apply_moe(cfg: MoEConfig, params, x: torch.Tensor, tp=None, batch_group=None
     out = tp.leave(sum(partial[1:], partial[0])) if partial else None
     for t in whole:
         out = t if out is None else out + t
-    return out.reshape(b_orig, s_orig, d), _aux_loss(cfg, r, batch_group)
+    return out.reshape(b_orig, s_orig, d), _aux_loss(cfg, r, share)
 
 
-def _aux_loss(cfg: MoEConfig, r: dict, batch_group=None) -> torch.Tensor:
+def _aux_loss(cfg: MoEConfig, r: dict, share=None) -> torch.Tensor:
     """The Switch-style load-balance aux loss over the *real* experts; with
-    ``batch_group``, its statistics averaged over the global batch as the
-    reference's are (the same value on every rank). It is the same on
-    every model rank and is not summed over the model group."""
-    me = r["onehot"].sum(dim=2).mean(dim=(0, 1))[:cfg.n_experts]  # fraction routed
-    pe = r["probs"].mean(dim=(0, 1))[:cfg.n_experts]              # mean prob
-    if batch_group is not None:
-        me, pe = batch_mean(me, batch_group), batch_mean(pe, batch_group)
+    ``share``, its statistics the global microbatch's means, weighted by
+    each rank's real tokens, as the reference's are (the same value on
+    every rank). It is the same on every model rank and is not summed over
+    the model group."""
+    mean = (lambda t: t.mean(dim=(0, 1))) if share is None else share.mean
+    me = mean(r["onehot"].sum(dim=2))[:cfg.n_experts]  # fraction routed
+    pe = mean(r["probs"])[:cfg.n_experts]              # mean prob
     return cfg.n_experts * torch.sum(me * pe) * cfg.aux_weight

@@ -62,7 +62,7 @@ def init_params(cfg, generator: Optional[torch.Generator] = None, device=None):
 # ---------------------------------------------------------------------------
 
 def _run_layers(cfg, params, x, positions, caches=None, decode=False, mesh=None, tp=None,
-                batch_group=None):
+                share=None):
     """Shared depth loop. caches: None | list of per-layer dicts.
 
     Each full cycle of the pattern runs as one body, under ``cfg.remat``
@@ -79,7 +79,7 @@ def _run_layers(cfg, params, x, positions, caches=None, decode=False, mesh=None,
         for kind, p, cache in zip(kinds, ps, cs):
             x, nc, a = B.block_apply(kind, cfg, p, x, positions, cache=cache,
                                      decode=decode, mesh=mesh, tp=tp,
-                                     batch_group=batch_group)
+                                     share=share)
             aux = aux + a
             new.append(nc)
         return x, aux, new
@@ -126,7 +126,7 @@ def logits_from(cfg, params, x: torch.Tensor, tp=None) -> torch.Tensor:
 
 def forward(cfg, params, tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None,
             caches=None, mesh=None, logits_positions: Optional[str] = None, tp=None,
-            batch_group=None):
+            share=None):
     """Full-sequence forward. Returns (logits, new_caches, aux).
 
     logits_positions="last" computes logits for the final position only:
@@ -134,15 +134,16 @@ def forward(cfg, params, tokens: torch.Tensor, prefix_embeds: Optional[torch.Ten
     the single largest compute and traffic term. ``tp``
     (``sharding.tp.TPContext``): the training forward on this rank's
     shards (``params``), the logits this rank's vocab range where
-    ``vocab`` is split. ``batch_group``: a data-parallel step's batch
-    group, over which the MoE averages its aux loss's statistics.
+    ``vocab`` is split. ``share`` (``sharding.tp.BatchShare``): a
+    data-parallel step's part of a global microbatch, over which the MoE
+    takes its aux loss's statistics.
     """
     x = embed_tokens(cfg, params, tokens, tp)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches, aux = _run_layers(cfg, params, x, positions, caches=caches, mesh=mesh, tp=tp,
-                                     batch_group=batch_group)
+                                     share=share)
     if logits_positions == "last":
         x = x[:, -1:]
     x = apply_norm(cfg.norm_kind, params["final_norm"], x)
@@ -162,25 +163,32 @@ def _vocab_parallel_ll(logits, idx, tp) -> torch.Tensor:
     return tp.leave(torch.where(mine, picked, 0.0)) - torch.log(sumexp)
 
 
-def loss_fn(cfg, params, batch: dict, mesh=None, tp=None, batch_group=None):
+def loss_fn(cfg, params, batch: dict, mesh=None, tp=None, share=None):
     """Next-token cross entropy (+ MoE aux). batch: tokens, labels[, prefix].
     With ``tp``, the cross entropy over the whole vocab from each rank's
-    range of the logits (:func:`_vocab_parallel_ll`) where it is split."""
+    range of the logits (:func:`_vocab_parallel_ll`) where it is split.
+    With ``share``, both are this rank's terms of the global microbatch's
+    (:func:`cross_entropy`)."""
     logits, _, aux = forward(
         cfg, params, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"), mesh=mesh,
-        tp=tp, batch_group=batch_group,
+        tp=tp, share=share,
     )
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:  # vision prefix: score text positions only
         logits = logits[:, -labels.shape[1]:]
-    ce = cross_entropy(cfg, params, logits, labels, tp)
+    ce = cross_entropy(cfg, params, logits, labels, tp, share)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def cross_entropy(cfg, params, logits: torch.Tensor, labels: torch.Tensor, tp=None):
+def cross_entropy(cfg, params, logits: torch.Tensor, labels: torch.Tensor, tp=None,
+                  share=None):
     """The mean next-token cross entropy of ``labels`` (negative ones
     masked) under ``logits``; with ``tp`` and ``vocab`` split, from this
-    rank's range of the logits (:func:`_vocab_parallel_ll`)."""
+    rank's range of the logits (:func:`_vocab_parallel_ll`). With
+    ``share`` (``sharding.tp.BatchShare``), the sum over this rank's rows
+    divided by the global microbatch's scored tokens over the batch
+    group's size: the mean over the group of these terms is the global
+    microbatch's cross entropy (the reference divides after its sum)."""
     # negative labels index from the end (of the whole vocab), as the
     # reference's take_along_axis
     if _vocab_split(cfg, params, tp):
@@ -191,7 +199,8 @@ def cross_entropy(cfg, params, logits: torch.Tensor, labels: torch.Tensor, tp=No
         idx = torch.where(labels < 0, labels + logits.shape[-1], labels).long()
         ll = torch.gather(logp, -1, idx[..., None])[..., 0]
     mask = (labels >= 0).float()
-    return -torch.sum(ll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    count = torch.clamp_min(torch.sum(mask), 1.0) if share is None else share.tokens
+    return -torch.sum(ll * mask) / count
 
 
 def _seq_shards(cfg, mesh) -> int:

@@ -46,7 +46,10 @@ shapes.
 
 :func:`batch_mean` is the same pair over a data-parallel step's batch
 group: the reference computes the MoE's load-balance loss over the global
-batch, so the MoE averages its routing statistics over that group.
+batch, so the MoE averages its routing statistics over that group. A
+:class:`BatchShare` says what a rank's part of a global microbatch weighs
+in such a statistic, and in the cross entropy, where the parts are uneven
+(a rank's part padded to the shard's rows, or no real row at all).
 """
 from __future__ import annotations
 
@@ -101,6 +104,33 @@ def batch_mean(x: torch.Tensor, group) -> torch.Tensor:
     the group, so the data-parallel mean of the gradients is the gradient
     of the global statistic."""
     return enter(leave(x, group), group) / dist.get_world_size(group)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShare:
+    """This data-parallel rank's part of one global microbatch, for the
+    statistics the reference takes over the whole of it. ``group``: the
+    batch group. The first ``rows`` of the rank's ``padded`` rows are
+    real, the rest pad its part to the shard's rows
+    (``data.tokens.shard_rows``). ``even``: the microbatch's rows over the
+    group's size (every rank's part, were the layout even); ``tokens``:
+    its scored tokens (labels not masked, at least one) over the group's
+    size. On an even layout each rank's terms are its local means."""
+
+    group: Any
+    rows: int
+    padded: int
+    even: torch.Tensor
+    tokens: torch.Tensor
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the global microbatch of ``x``'s dimensions 0 and
+        1 (dimension 0: this rank's padded rows, each as an equal count of
+        groups), on every rank, differentiable (:func:`batch_mean` of each
+        rank's real rows' sum over ``even`` rows' worth)."""
+        per_row = x.shape[0] // self.padded
+        local = x[:per_row * self.rows].sum(dim=(0, 1)) / (per_row * x.shape[1] * self.even)
+        return batch_mean(local, self.group)
 
 
 def split_dim(spec: tuple) -> Optional[int]:

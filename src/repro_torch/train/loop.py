@@ -10,7 +10,14 @@ reference lets XLA derive them from shardings:
   laid out for another count is refused); gradients and the loss are
   averaged over the data group in f32. Microbatches split the rank's
   batch into ``microbatches`` contiguous chunks, as the reference's reshape
-  ``(nm, b // nm)`` does, with gradients accumulated in f32. ``zero1``
+  ``(nm, b // nm)`` does, with gradients accumulated in f32. Where a
+  microbatch's rows do not divide over the data ranks, a rank's chunk is
+  padded to the shard's rows (``TokenBatch.shard_rows``, GSPMD's padded
+  shard; none may be real) with rows that weigh nothing, so every rank
+  runs the same shapes and every collective; each rank's cross entropy and
+  the MoE's statistics are its terms of the global microbatch's
+  (``sharding.tp.BatchShare``: its sum over the global count, summed over
+  the data group before the mean is read). ``zero1``
   shards ``m``/``v`` over the data group on the dimension the reference's
   ``_opt_shardings`` picks; the update runs on the shard and the new
   parameter is all-gathered (a stacked leaf sharded on its layers axis is
@@ -22,7 +29,9 @@ reference lets XLA derive them from shardings:
 * **manual-dp**: the reference's ``shard_map`` step: per-rank gradients
   reduced with the int8 compressed sum (+ error feedback, a third piece of
   state) from ``train.grad_compress``, or averaged in f32; the loss is
-  averaged over the first data axis only, as the reference does. The
+  averaged over the first data axis only, as the reference does. Each
+  rank's rows must split into the microbatches, as the reference's
+  ``shard_map`` reshape needs: an uneven layout is refused. The
   compression takes one scale per tensor of the reference's stacked tree
   (a pattern position's layers share it), so the gradients are stacked
   for it and unstacked after.
@@ -59,7 +68,7 @@ from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.sharding.rules import (
     ShardingRules, axis_sizes, batch_axes_for_mesh, build_param_specs, spec_axes,
 )
-from repro_torch.sharding.tp import shard_params, split_dim, tp_context
+from repro_torch.sharding.tp import BatchShare, shard_params, split_dim, tp_context
 from repro_torch.train import optim
 from repro_torch.train.grad_compress import compressed_psum_tree
 
@@ -295,11 +304,18 @@ def _leaves_like(like, flat: list):
 
 def init_opt_state(params, placements=None) -> dict:
     """``optim.init_opt_state``, with ``m``/``v`` this rank's parts under
-    ZeRO-1 placements (None where a layer is owned by another rank)."""
+    ZeRO-1 placements (None where a layer is owned by another rank), each
+    its own storage (a view would hold the whole moment)."""
     state = optim.init_opt_state(params)
     if placements is None:
         return state
-    part = lambda z, pl: z if pl is None else pl.local(z)  # noqa: E731
+
+    def part(z, pl):
+        if pl is None:
+            return z
+        local = pl.local(z)
+        return None if local is None else local.clone()
+
     return {"m": tree_map(part, state["m"], placements),
             "v": tree_map(part, state["v"], placements), "step": state["step"]}
 
@@ -314,11 +330,11 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
     opt_sh = _opt_shardings(mesh, rules, shapes, logical, param_sh, tcfg.zero1)
     ba, dp = _dp(mesh)
     batch_spec = (_batch_entry(ba) if ba else None,)
-    # the MoE's aux loss is over the global batch (auto mode: the reference's
-    # manual-dp computes it on each rank's rows)
-    moe_dp = tcfg.mode == "auto" and dp > 1 and "attn+moe" in cfg.pattern
     batch_group, batch_rank = _batch_group(mesh, ba)
-    moe_group = batch_group if moe_dp else None
+    # the cross entropy and the MoE's aux loss are over the global
+    # microbatch (auto mode: the reference's manual-dp takes them over each
+    # rank's rows)
+    global_stats = tcfg.mode == "auto" and dp > 1
     # ZeRO-1 placements of m/v (and, for ZeRO-2, of the gradients): the
     # reference's zero1 specs whatever tcfg.zero1 says, as its zero2 uses them
     zero_sh = _opt_shardings(mesh, rules, shapes, logical, param_sh, True)["m"]
@@ -349,6 +365,15 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
         return tree_map(lambda t, pl: sum_over(t, groups) if pl is None
                         else pl.reduce(t.to(torch.float32).clone()), g, places)
 
+    def shares_of(chunks: list, rows: int, padded: int) -> list:
+        """Each microbatch's :class:`BatchShare`: the real rows and scored
+        tokens summed over the data group (one all-reduce)."""
+        counts = [(c["labels"] >= 0).sum() for c in chunks]
+        total = sum_over(torch.stack([torch.full_like(counts[0], rows)] + counts), groups)
+        even = total[0] / dp
+        return [BatchShare(batch_group, rows, padded, even,
+                           torch.clamp_min(t, 1.0) / dp) for t in total[1:]]
+
     def grads_of(params, batch):
         laid = getattr(batch, "microbatches", tcfg.row_microbatches)
         if dp > 1 and laid != tcfg.row_microbatches:
@@ -356,25 +381,33 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
                 f"the batch's rows are laid out for {laid} microbatches but the step takes "
                 f"{tcfg.row_microbatches} (mode {tcfg.mode!r}): build the dataset with "
                 f"TokenDataset(microbatches=TrainConfig.row_microbatches)")
+        b = next(iter(batch.values())).shape[0]
+        if b % nm:
+            raise ValueError(f"{b} rows on each of the {dp} data ranks do not split into {nm} "
+                             f"microbatches (the reference's reshape refuses this layout)")
+        rows = b // nm
+        chunks = [batch] if nm == 1 else [{k: v[i * rows:(i + 1) * rows]
+                                           for k, v in batch.items()} for i in range(nm)]
+        shares = [None] * nm
+        if global_stats:
+            padded = getattr(batch, "shard_rows", None) or rows
+            shares = shares_of(chunks, rows, padded)
+            if padded > rows:
+                chunks = [_pad_rows(c, padded) for c in chunks]
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         flat = tree_leaves(leaves)
 
-        def one(mb):
-            loss, ex = model.loss_fn(mb, mesh=mesh, params=leaves, tp=tp,
-                                     batch_group=moe_group)
+        def one(mb, share):
+            loss, ex = model.loss_fn(mb, mesh=mesh, params=leaves, tp=tp, share=share)
             gs = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
             return loss.detach(), ex, _leaves_like(leaves, list(gs))
 
         if nm == 1:
-            loss, ex, g = one(batch)
+            loss, ex, g = one(chunks[0], shares[0])
             return loss, ex, (reduce2(g) if zero2 else g)
-        b = next(iter(batch.values())).shape[0]
-        if b % nm:
-            raise ValueError(f"batch of {b} rows does not split into {nm} microbatches")
-        bm = b // nm
         acc, loss_sum = None, 0.0
         for i in range(nm):
-            loss, _, g = one({k: v[i * bm:(i + 1) * bm] for k, v in batch.items()})
+            loss, _, g = one(chunks[i], shares[i])
             g = reduce2(g) if zero2 else tree_map(lambda t: t.to(torch.float32), g)
             acc = g if acc is None else tree_map(
                 lambda a, t: None if a is None else a + t, acc, g)
@@ -443,6 +476,17 @@ def make_train_step(model, mesh, rules: ShardingRules, tcfg: TrainConfig,
         "zero_size": dp, "batch_entry": _batch_entry(ba) if ba else None, "tp": tp,
     }
     return step, shardings
+
+
+def _pad_rows(mb: dict, rows: int) -> dict:
+    """``mb`` padded to ``rows`` rows that weigh nothing: labels masked
+    (-1), every other input zero."""
+    out = {}
+    for k, v in mb.items():
+        fill = torch.full((rows - v.shape[0],) + tuple(v.shape[1:]), -1 if k == "labels" else 0,
+                          dtype=v.dtype, device=v.device)
+        out[k] = torch.cat([v, fill])
+    return out
 
 
 def _local_dim(d, i, n):

@@ -293,3 +293,39 @@ def test_dryrun_single_cell_subprocess():
     assert rec["collectives"]["counts"]["all-reduce"] > 0
     assert 0 < rec["roofline_fraction"] < 1
     assert np.isclose(rec["model_flops_per_device"], rec["model_flops_total"] / 256)
+
+
+def test_uneven_train_cell_rows_build():
+    """internvl2-76b train_4k on multipod_2x16x16, the cell whose
+    microbatches' rows do not divide over the data ranks: its 16
+    microbatches of the 256-row batch are 16 rows over the 32 (pod, data)
+    ranks, so a shard is one row and ranks 0-15 hold one row of each
+    microbatch, 16-31 none; each rank's inputs keep the reference's
+    input_specs beyond the batch dimension (the shape arithmetic only)."""
+    from repro_torch.train.loop import TrainConfig
+
+    cfg = PC.get_config("internvl2-76b")
+    shape = PSH.SHAPES["train_4k"]
+    mesh = make_production_mesh(multi_pod=True)
+    assert PS._batch_axes(mesh, shape.global_batch) == ("pod", "data")
+    tcfg = TrainConfig(**PC.get_train_overrides("internvl2-76b"))
+    nm = tcfg.row_microbatches
+    assert nm == 16 and shape.global_batch == 256
+    ins = PS.input_specs(cfg, shape)
+    ref = RSH.SHAPES["train_4k"]
+    assert {k: tuple(v.shape) for k, v in ins.items()} == {
+        "tokens": (ref.global_batch, ref.seq - cfg.prefix_len),
+        "labels": (ref.global_batch, ref.seq - cfg.prefix_len),
+        "prefix_embeds": (ref.global_batch, cfg.prefix_len, cfg.d_model)}
+    held = []
+    for rank in range(32):
+        batch = PS.train_rows(ins, nm, 32, rank)
+        assert batch.microbatches == nm and batch.shard_rows == 1
+        rows = {t.shape[0] for t in batch.values()}
+        assert len(rows) == 1
+        held.append(rows.pop())
+        for k, t in batch.items():
+            assert t.shape[1:] == ins[k].shape[1:] and t.dtype == ins[k].dtype and t.is_meta
+    assert held == [nm] * 16 + [0] * 16
+    with pytest.raises(ValueError, match="microbatches"):
+        PS.train_rows(ins, 24, 32, 0)       # 256 rows do not split into 24

@@ -105,9 +105,20 @@ def test_source_imports_no_jax_or_reference(path):
     assert not roots & {"jax", "jaxlib", "repro"}, roots
 
 
+# the port's twins of the reference's seven graph examples
+TWINS = ("quickstart", "multi_query", "evolving_pagerank", "serving_loop",
+         "observe_serving", "distributed_pagerank", "graph_end2end")
+
+
 def test_chip_smoke_imports_no_jax_or_reference():
-    roots = _imported_roots(SRC.parent / "chip_smoke.py")
-    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    """``chip_smoke.py`` and every ``examples/*_torch.py`` (the seven
+    graph twins among them) import neither jax nor the reference."""
+    examples = SRC.parent / "examples"
+    paths = [SRC.parent / "chip_smoke.py"] + sorted(examples.glob("*_torch.py"))
+    assert {examples / f"{t}_torch.py" for t in TWINS} <= set(paths)
+    for path in paths:
+        roots = _imported_roots(path)
+        assert not roots & {"jax", "jaxlib", "repro"}, (path.name, roots)
 
 
 def test_lazy_surface_resolves():

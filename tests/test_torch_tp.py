@@ -29,7 +29,13 @@ every gradient within ``MODULE_RTOL`` of its norm), and a checkpoint saved
 on (data, model) = (2, 2): a restart there gives the uninterrupted run's
 bits, and it restores on (4, 1) and on one rank to the state it saved;
 the save makes each leaf whole on the first rank's host alone. A step fed
-rows laid out for another microbatch count than its own is refused.
+rows laid out for another microbatch count than its own is refused, and
+so is a manual-dp step whose rank's rows do not split into its
+microbatches. The cases on (4, 1) and (2, 2, 1) whose microbatches' rows
+do not divide over the data ranks (a rank holds one row of each, or
+none) are held to the reference as the others are; the MoE's dropped
+pairs of the first step, summed over the ranks' real rows, are the
+reference's.
 """
 import os
 import pickle
@@ -76,7 +82,18 @@ CASES = {
     "rglru_zero1": ("recurrentgemma-2b", (2, 2), DM, dict(zero1=True, microbatches=2), 2),
     "xlstm_tp4": ("xlstm-350m", (1, 4), DM, dict(microbatches=2), 1),
     "whisper_mb4": ("whisper-tiny", (2, 2), DM, dict(microbatches=4), 1),
+    # microbatches whose rows do not divide over the data ranks: GSPMD pads
+    # the shard; here ranks hold 1, 1, 0, 0 rows of each microbatch (2, 2,
+    # 2, 0 of the 6-row microbatches of a global 12)
+    "olmo_uneven_zero1": ("olmo-1b", (4, 1), DM, dict(zero1=True, microbatches=4), 2),
+    "olmo_uneven12_zero2": ("olmo-1b", (4, 1), DM,
+                            dict(zero1=True, zero2_grads=True, microbatches=2), 2),
+    "qwen_uneven_mb4": ("qwen2-moe-a2.7b", (4, 1), DM, dict(zero1=True, microbatches=4), 1),
+    "olmo_pod_uneven": ("olmo-1b", (2, 2, 1), ("pod", "data", "model"),
+                        dict(zero1=True, microbatches=4), 2),
 }
+# the global batch of a case (default 8)
+GLOBAL = {"olmo_uneven12_zero2": 12}
 # per module case: what runs, the arch (config overrides), the model axis
 MODULES = {
     "loss_vocab": ("loss", "olmo-1b", {}, 2),
@@ -109,6 +126,9 @@ REMAT_ARCHS = ("qwen2-moe-a2.7b", "recurrentgemma-2b", "xlstm-350m", "whisper-ti
 REFUSE = {
     "moe_auto": ("qwen2-moe-a2.7b", dict(zero1=True, microbatches=4), 1),
     "dense_manual": ("olmo-1b", dict(mode="manual-dp", microbatches=2), 2),
+    # 4 rows a data rank into 8 microbatches: auto trains this layout, the
+    # reference's manual-dp reshape refuses it
+    "manual_uneven": ("olmo-1b", dict(mode="manual-dp", microbatches=8), 1),
 }
 CKPT = dict(case="olmo_zero1", save_at=2)
 CKPT_ARCH = CASES[CKPT["case"]][0]
@@ -152,8 +172,9 @@ RANK_CODE = textwrap.dedent("""
         tp = sh["tp"]
         return (flat(cfg, gather_params(params, tp)), flat(cfg, gather_params(full["m"], tp)),
                 flat(cfg, gather_params(full["v"], tp)))
-    def batches(cfg, mesh, nm):
-        return TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=16, global_batch=8,
+    def batches(cfg, mesh, nm, global_batch=8):
+        return TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=16,
+                                               global_batch=global_batch,
                                                seed=0), prefix_len=cfg.prefix_len,
                             d_model=cfg.d_model, frames=cfg.arch_type == "encdec", mesh=mesh,
                             device="cpu", microbatches=nm)
@@ -184,13 +205,26 @@ RANK_CODE = textwrap.dedent("""
         params = shard_params(tree_map(lambda t: t.detach(), model.params), tp)
         opt = init_opt_state(params, sh["placements"])
         err = init_error_tree(params)
-        ds = batches(cfg, mesh, tcfg.row_microbatches)
+        ds = batches(cfg, mesh, tcfg.row_microbatches, GLOBAL.get(case, 8))
         if cfg.moe_experts:
             full = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=16, global_batch=8,
                                                    seed=0), device="cpu")
             out[case + ".dropped"] = dropped(model, params, full(0), tp)
         losses, aux = [], []
+        route = MO.route
+        if cfg.moe_experts and shape[-1] == 1:
+            # the first step's routing, on this rank's real rows only
+            first = ds(0)
+            real = (first["tokens"].shape[0] // tcfg.microbatches, first.shard_rows)
+            keeps = []
+            def recording(*a, **k):
+                r = route(*a, **k)
+                keeps.append(r["keep"][:r["keep"].shape[0] * real[0] // real[1]])
+                return r
+            MO.route = recording
         for s in range(steps):
+            if s == 1:
+                MO.route = route
             if case == CKPT["case"] and s == CKPT["save_at"]:
                 mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
                 save_train_state(mgr, model, s, params, opt, sh)
@@ -204,6 +238,10 @@ RANK_CODE = textwrap.dedent("""
                 params, opt, met = step(params, opt, ds(s))
             losses.append(float(met["loss"]))
             aux.append(float(met["aux"]) if "aux" in met else 0.0)
+        MO.route = route
+        if cfg.moe_experts and shape[-1] == 1:
+            out[case + ".dropped_step"] = np.array([float(sum((~k).sum() for k in keeps)),
+                                                    float(sum(k.numel() for k in keeps))])
         out[case + ".loss"] = np.array(losses)
         out[case + ".aux"] = np.array(aux)
         # what the save takes of each m leaf to this rank's host
@@ -415,7 +453,8 @@ REF_CODE = textwrap.dedent("""
         shapes, _ = RM.abstract_params(cfg)
         params = jax.tree.map(lambda a, s: jnp.asarray(a, s.dtype), tree, shapes)
         model = RM.build_model(cfg)
-        ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=16, global_batch=8,
+        ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=16,
+                                             global_batch=GLOBAL.get(case, 8),
                                              seed=0), frames=cfg.arch_type == "encdec",
                           d_model=cfg.d_model)
         if cfg.moe_experts:  # the first batch's routing at the initial weights
@@ -469,7 +508,8 @@ REF_CODE = textwrap.dedent("""
 
 
 def _consts() -> str:
-    return (f"CASES = {CASES!r}\nMODULES = {MODULES!r}\nCKPT = {CKPT!r}\nOPT = {OPT!r}\n"
+    return (f"CASES = {CASES!r}\nGLOBAL = {GLOBAL!r}\n"
+            f"MODULES = {MODULES!r}\nCKPT = {CKPT!r}\nOPT = {OPT!r}\n"
             f"REFUSE = {REFUSE!r}\nOWN = {OWN!r}\nLOOP_COLLECTIVES = {LOOP_COLLECTIVES!r}\n"
             f"REMAT_ARCHS = {REMAT_ARCHS!r}\n"
             f"RANKS = {RANKS}\nCKPT_ARCH = {CKPT_ARCH!r}\n")
@@ -634,6 +674,19 @@ def test_moe_dropped_share_matches_reference(tp_ranks):
     assert want[0] > 0  # the capacity bites
     for r in ranks:
         np.testing.assert_array_equal(r["qwen_ep.dropped"], want)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if CASES[c][0] == "qwen2-moe-a2.7b"
+                                  and CASES[c][1][-1] == 1])
+def test_moe_dropped_share_over_uneven_parts(tp_ranks, case):
+    """Each data rank routes its real rows of every microbatch (1, 1, 0,
+    0 rows) as the reference routes the global batch: the dropped (token,
+    choice) pairs of the first step, summed over the ranks, the
+    reference's count on the same batch."""
+    ref, ranks, _ = tp_ranks
+    want = ref[case + ".dropped"]
+    assert want[0] > 0
+    np.testing.assert_array_equal(sum(r[case + ".dropped_step"] for r in ranks), want)
 
 
 def test_checkpoint_restart_and_remesh(tp_ranks):

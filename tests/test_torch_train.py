@@ -217,6 +217,35 @@ def test_token_dataset_rank_slices():
                         mesh=_DataMesh(4, 0), device="cpu")
 
 
+@pytest.mark.parametrize("global_batch,nm", [(8, 4), (12, 2), (8, 1), (4, 4)])
+def test_token_dataset_uneven_microbatch_rows(global_batch, nm):
+    """Rank r of 4 holds rows [r c, min(b, (r + 1) c)) of each of the nm
+    microbatches of b = B / nm rows (c = ceil(b / 4), GSPMD's shard; the
+    batch says c): the ranks' parts of each microbatch, in rank order, are
+    the reference's microbatch; the layouts the reference refuses raise."""
+    kw = dict(vocab=97, seq_len=8, global_batch=global_batch, seed=1)
+    want = RT.TokenDataset(RT.TokenDatasetConfig(**kw))(3)["tokens"]
+    b, c = global_batch // nm, -(-(global_batch // nm) // 4)
+    parts = []
+    for r in range(4):
+        batch = PT.TokenDataset(PT.TokenDatasetConfig(**kw), mesh=_DataMesh(4, r),
+                                device="cpu", microbatches=nm)(3)
+        assert batch.microbatches == nm and batch.shard_rows == c
+        held = max(0, min(b, (r + 1) * c) - r * c)
+        assert batch["tokens"].shape[0] == nm * held
+        parts.append(batch["tokens"].numpy().reshape(nm, held, kw["seq_len"]))
+    np.testing.assert_array_equal(np.concatenate(parts, axis=1).reshape(global_batch, -1), want)
+
+
+@pytest.mark.parametrize("global_batch,nm", [(8, 3), (4, 8), (6, 2)])
+def test_token_dataset_refuses_what_the_reference_refuses(global_batch, nm):
+    """A global batch that does not split into the microbatches (the
+    reference's reshape) or over the 4 data ranks (its input sharding)."""
+    with pytest.raises(ValueError, match="does not split"):
+        PT.TokenDataset(PT.TokenDatasetConfig(vocab=97, seq_len=8, global_batch=global_batch),
+                        mesh=_DataMesh(4, 0), device="cpu", microbatches=nm)
+
+
 # --------------------------------------------------------- loss gradients
 
 def _batch(cfg, rows=2, seq=16, seed=0) -> dict:
