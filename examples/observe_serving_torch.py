@@ -12,6 +12,12 @@ renders, with no dependencies beyond the stdlib and numpy:
   ``resolve`` events — the skew made visible;
 * the residual decay of one traced solo solve as a unicode sparkline from
   ``RunResult.convergence_trace`` — the paper's Fig. 7 quantity;
+* the host's time by span name: count, total and self time (a span's
+  duration less what its child spans cover, `repro_torch.obs.self_times`),
+  so a ``tick``'s self time is the server's own host work a tick; where
+  the server runs the multi-sweep kernel (``backend="kernel"``,
+  ``sweeps_per_call > 1``), the mean of ``batch.active``, the share of
+  blocks each sweep swept;
 * an excerpt of the Prometheus exposition ``GraphServer.metrics_text()``
   serves.
 
@@ -37,7 +43,7 @@ from repro_torch import GraphServer, get_algorithm, solve  # noqa: E402
 from repro_torch.engine.api import EngineOptions  # noqa: E402
 from repro_torch.graphs import generators as gen  # noqa: E402
 from repro_torch.graphs.graph import Graph  # noqa: E402
-from repro_torch.obs import Tracer  # noqa: E402
+from repro_torch.obs import Tracer, self_times  # noqa: E402
 
 HUB_N = 500
 TAIL_N = 140
@@ -83,6 +89,19 @@ def text_histogram(samples, edges) -> list[str]:
         f"{'█' * max(1, int(24 * c / peak)) if c else '':<24} {c}"
         for lo, hi, c in zip(edges[:-1], edges[1:], counts)
     ]
+
+
+def span_table(spans) -> dict[str, tuple[int, float, float]]:
+    """Host time by span name from the sink's records: ``name -> (count,
+    total s, self s)``, the largest total first."""
+    own = self_times(spans)
+    rows: dict[str, list] = {}
+    for s in spans:
+        row = rows.setdefault(s["name"], [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += s["duration_s"]
+        row[2] += own[s["id"]]
+    return {k: tuple(v) for k, v in sorted(rows.items(), key=lambda kv: -kv[1][1])}
 
 
 def run(hub_n: int = HUB_N, tail_n: int = TAIL_N, n_queries: int = N_QUERIES,
@@ -139,6 +158,14 @@ def run(hub_n: int = HUB_N, tail_n: int = TAIL_N, n_queries: int = N_QUERIES,
              f"p99 rounds {int(np.percentile(rounds, 99))}")
         for line in text_histogram(rounds, edges):
             echo(line)
+    table = span_table(spans)
+    echo(f"\n  {'span':<14} {'count':>6} {'total ms':>10} {'self ms':>10}")
+    for name, (count, total, own) in table.items():
+        echo(f"  {name:<14} {count:6d} {1e3 * total:10.2f} {1e3 * own:10.2f}")
+    active = [a for b in batches for a in b.get("active", ())]
+    if active:
+        echo(f"  blocks swept a sweep: mean {np.mean(active):.3f} over "
+             f"{len(active)} sweeps")
 
     # --- 4. the Prometheus endpoint -------------------------------------
     echo("\nmetrics_text() excerpt:")
@@ -151,7 +178,7 @@ def run(hub_n: int = HUB_N, tail_n: int = TAIL_N, n_queries: int = N_QUERIES,
     echo(f"\nsummary: rounds p50/p99 {s['rounds_p50']:.0f}/"
          f"{s['rounds_p99']:.0f}, per-tenant batches {s['tenant_batches']}")
     return {"spans": spans, "solo": res, "tenant_rounds": tenant_rounds,
-            "metrics": metrics, "summary": s, "sink": sink_path}
+            "table": table, "metrics": metrics, "summary": s, "sink": sink_path}
 
 
 def main():

@@ -20,6 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from repro_torch.graphs.graph import Graph
+from repro_torch.obs.trace import child
 
 BIG = np.float32(3.0e38)  # stand-in for +inf that survives f32 arithmetic
 
@@ -98,23 +99,25 @@ class AlgoInstance:
         return self.exact_fn()
 
     def relabel(self, rank: np.ndarray) -> "AlgoInstance":
-        """Apply a processing order: vertex v becomes id rank[v]."""
-        rank = np.asarray(rank)
-        inv = np.empty_like(rank)
-        inv[rank] = np.arange(len(rank))
-        return dataclasses.replace(
-            self,
-            src=rank[self.src].astype(np.int32),
-            dst=rank[self.dst].astype(np.int32),
-            w=self.w.copy(),
-            x0=self.x0[inv].copy(),
-            c=self.c[inv].copy(),
-            fixed=self.fixed[inv].copy(),
-            exact_fn=(lambda: self.exact()[inv]) if self.exact_fn is not None else None,
-            # id-valued params (source/seeds/target) are now stale; dropping
-            # them makes `remake` on a relabeled instance fail loudly
-            params=None,
-        )
+        """Apply a processing order: vertex v becomes id rank[v]. Under an
+        open span, a ``relabel`` child span."""
+        with child("relabel"):
+            rank = np.asarray(rank)
+            inv = np.empty_like(rank)
+            inv[rank] = np.arange(len(rank))
+            return dataclasses.replace(
+                self,
+                src=rank[self.src].astype(np.int32),
+                dst=rank[self.dst].astype(np.int32),
+                w=self.w.copy(),
+                x0=self.x0[inv].copy(),
+                c=self.c[inv].copy(),
+                fixed=self.fixed[inv].copy(),
+                exact_fn=(lambda: self.exact()[inv]) if self.exact_fn is not None else None,
+                # id-valued params (source/seeds/target) are now stale; dropping
+                # them makes `remake` on a relabeled instance fail loudly
+                params=None,
+            )
 
 
 # --------------------------------------------------------------------------

@@ -281,35 +281,36 @@ def solve(
             f"device={o.device!r} was asked for but no CUDA device is available; "
             "pass device='cpu' to run on the CPU"
         )
-    rank: Optional[np.ndarray] = None
-    if o.rank is not None:
-        from repro_torch.engine.harness import permute_state
-        from repro_torch.graphs.graph import check_permutation
-
-        rank = np.asarray(o.rank)
-        check_permutation(rank, algo.n)
-        algo = algo.relabel(rank)
-        o = dataclasses.replace(
-            o,
-            rank=None,
-            x_init=None if o.x_init is None
-            else permute_state(np.asarray(o.x_init), rank),
-            frontier=None if o.frontier is None
-            else permute_state(np.asarray(o.frontier), rank),
-        )
     from repro_torch.engine import async_block, distributed, push, sync
     from repro_torch.obs.trace import tspan
 
     impl = {"sync": sync._solve, "async_block": async_block._solve,
             "distributed": distributed._solve, "push": push._solve}[engine]
+    # the span covers the whole call: the relabel into rank space and back
     with tspan(o.trace, "solve", algo=algo.name, engine=engine,
                backend=o.backend, n=algo.n, d=algo.d) as sp:
+        rank: Optional[np.ndarray] = None
+        if o.rank is not None:
+            from repro_torch.engine.harness import permute_state
+            from repro_torch.graphs.graph import check_permutation
+
+            rank = np.asarray(o.rank)
+            check_permutation(rank, algo.n)
+            algo = algo.relabel(rank)
+            o = dataclasses.replace(
+                o,
+                rank=None,
+                x_init=None if o.x_init is None
+                else permute_state(np.asarray(o.x_init), rank),
+                frontier=None if o.frontier is None
+                else permute_state(np.asarray(o.frontier), rank),
+            )
         with _transfer_guard(o.transfer_guard, device):
             res = impl(algo, o)
         sp.set(rounds=res.rounds, converged=bool(res.converged))
-    if rank is not None:
-        x = np.asarray(res.x).reshape(algo.n, -1)[rank]
-        if algo.d == 1:
-            x = x[:, 0]
-        res = dataclasses.replace(res, x=x)
+        if rank is not None:
+            x = np.asarray(res.x).reshape(algo.n, -1)[rank]
+            if algo.d == 1:
+                x = x[:, 0]
+            res = dataclasses.replace(res, x=x)
     return res

@@ -31,7 +31,7 @@ from repro_torch.engine.algorithms import AlgoInstance
 from repro_torch.engine.convergence import RunResult
 from repro_torch.engine import harness
 from repro_torch.engine import torch_ops as T
-from repro_torch.obs.trace import tspan
+from repro_torch.obs.trace import NULL_SPAN, tspan
 
 
 def _run(
@@ -167,7 +167,7 @@ def _run_async_block_kernel(
     out = harness.sweep_batched_loop(
         batch_fn, x_start, dirty0,
         eps=algo.eps, max_iters=max_iters, sweeps=sweeps_per_call, nb=nb,
-        real_mask=real_mask, tracer=tracer,
+        real_mask=real_mask,
     )
     res = harness.finalize(algo, *out[:6])
     res.active_block_fraction = out[6]
@@ -312,7 +312,13 @@ class AsyncBlockSession:
             0, device_index([j], self.device), int(rounds))
 
     def swap_in(self, j: int, q_x0, q_c, q_fixed) -> None:
-        """Install a new query into column ``j`` (between batches)."""
+        """Install a new query into column ``j`` (between batches); with a
+        tracer a ``swap_in`` span, ``touched`` the vertices whose blocks
+        it marks dirty."""
+        with tspan(self.trace, "swap_in", slot=j) as sp:
+            self._swap_in_inner(j, q_x0, q_c, q_fixed, sp)
+
+    def _swap_in_inner(self, j: int, q_x0, q_c, q_fixed, sp) -> None:
         from repro_torch.engine.convergence import reinit_columns
 
         self.col_done, self.col_rounds = reinit_columns(
@@ -339,6 +345,8 @@ class AsyncBlockSession:
                 self.algo.src, self.algo.dst, support, self.n, depth=1
             )
             self.dirty = or_dirty_blocks(self.dirty, touched, self.n, self.bs)
+            if sp is not NULL_SPAN:
+                sp.set(touched=int(np.count_nonzero(touched)))
 
     def run_batch(self, max_iters: int) -> BatchReport:
         """Advance every column up to ``max_iters`` rounds (converged
@@ -346,7 +354,8 @@ class AsyncBlockSession:
         once all columns are done) and fold the report into the cumulative
         accounting. With a tracer the batch is a ``batch`` span carrying
         the session's attributes, the round count and the residuals, read
-        in the batch's one readout."""
+        in the batch's one readout, and under the multi-sweep kernel
+        ``active``, each sweep's share of blocks swept."""
         with tspan(self.trace, "batch", backend=self.backend,
                    max_iters=max_iters, **self.trace_attrs) as sp:
             return self._run_batch_inner(max_iters, sp)
@@ -408,9 +417,11 @@ class AsyncBlockSession:
             out = harness.sweep_batched_loop(
                 batch_fn, self.x, self.dirty,
                 eps=a.eps, max_iters=max_iters, sweeps=self.sweeps_per_call,
-                nb=self.nb, real_mask=self._real_mask, tracer=self.trace,
+                nb=self.nb, real_mask=self._real_mask,
             )
             self.dirty = out[7]  # the frontier carried into the next batch
+            if sp is not NULL_SPAN:
+                sp.set(active=[float(v) for v in out[6]])
         # the kernel wrote this buffer in place; the next batch and any swap
         # consume it directly
         self.x = out[0]

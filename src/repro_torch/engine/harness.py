@@ -39,7 +39,6 @@ from repro_torch.engine import torch_ops as T
 from repro_torch.graphs.blocked import pack_in_edges, pad_state, padded_n
 from repro_torch.graphs.graph import Graph
 from repro_torch.obs.telemetry import trace_from_col_rounds
-from repro_torch.obs.trace import tspan
 
 
 @contextlib.contextmanager
@@ -326,7 +325,6 @@ def sweep_batched_loop(
     sweeps: int,
     nb: int,
     real_mask: Optional[torch.Tensor] = None,
-    tracer=None,
 ):
     """Host-side round driver for the multi-sweep kernel.
 
@@ -350,18 +348,13 @@ def sweep_batched_loop(
     act_trace: list[float] = []
     k = 0
     while k < max_iters and not col_done.all():
-        with tspan(tracer, "sweep_call", sweeps=sweeps, nb=nb, k=k) as sp:
-            x, deltas, active, dirty = batch_fn(x, dirty)
-            xm = x if real_mask is None else torch.where(real_mask[:, None], x, 0.0)
-            batch_sum_t = torch.sum(torch.where(torch.abs(xm) < 1e30, xm, 0.0))
-            with audited_sync():  # once-per-batch convergence trace readout
-                deltas_np = deltas.cpu().numpy()
-                active_np = active.cpu().numpy()
-                batch_sum = float(batch_sum_t)
-            sp.set(
-                max_delta=float(np.max(deltas_np)),
-                active_blocks=[float(a) for a in active_np[:, 0]],
-            )
+        x, deltas, active, dirty = batch_fn(x, dirty)
+        xm = x if real_mask is None else torch.where(real_mask[:, None], x, 0.0)
+        batch_sum_t = torch.sum(torch.where(torch.abs(xm) < 1e30, xm, 0.0))
+        with audited_sync():  # once-per-batch convergence trace readout
+            deltas_np = deltas.cpu().numpy()
+            active_np = active.cpu().numpy()
+            batch_sum = float(batch_sum_t)
         for s in range(sweeps):
             if k >= max_iters or col_done.all():
                 break

@@ -19,6 +19,7 @@ from repro_torch.engine.algorithms import AlgoInstance
 from repro_torch.graphs.blocked import pack_bsr_flat, pad_state, padded_n
 from repro_torch.graphs.graph import Graph
 from repro_torch.kernels.semirings import TILE_FILL
+from repro_torch.obs.trace import child
 
 
 def bsr_spmm(rowptr, tilerows, tilecols, tiles, x, *, semiring="plus_times",
@@ -69,7 +70,8 @@ def pack_algorithm(
     The state is (n_padded, d). ``d`` defaults to ``algo.d``; a larger ``d``
     broadcasts a scalar (``algo.d == 1``) instance across the batch.
     ``x0_host`` keeps a host copy of the padded x0 so warm starts never read
-    it back from the device.
+    it back from the device. Under an open span, the tiles are a
+    ``pack_tiles`` child span and the rest a ``pack_operands`` one.
     """
     key = (algo.semiring.reduce, algo.semiring.edge_op)
     if key not in _KERNEL_SEMIRING:
@@ -82,7 +84,7 @@ def pack_algorithm(
     semiring = _KERNEL_SEMIRING[key]
     device = torch.device(device)
     g = Graph(algo.n, algo.src, algo.dst, algo.w)
-    with audited_sync():  # staging the tile payload on the device
+    with child("pack_tiles"), audited_sync():  # staging the tile payload on the device
         bsr = pack_bsr_flat(g, bs, fill=TILE_FILL[semiring], device=device)
     npad = padded_n(algo.n, bs)
     d = algo.d if d is None else d
@@ -98,25 +100,26 @@ def pack_algorithm(
     def dev(a):
         return to_device(a, device)
 
-    x0pad = padm(algo.x0, algo.semiring.identity)
-    revptr, revrows = bsr.reverse_deps()
-    return {
-        "rowptr": dev(bsr.rowptr),
-        "tilecols": dev(bsr.tilecols),
-        "tilerows": dev(bsr.tilerows),
-        "revptr": dev(revptr),
-        "revrows": dev(revrows),
-        "tiles": bsr.tiles,
-        "c": dev(padm(algo.c, algo.c_pad_fill)),
-        "x0": dev(x0pad),
-        "x0_host": x0pad,
-        "fixed": dev(padm(algo.fixed, 1.0)),  # pads pinned
-        "x": dev(x0pad.copy()),
-        "semiring": semiring,
-        "combine": algo.combine,
-        "bsr_stats": bsr.stats(),
-        "npad": npad,
-    }
+    with child("pack_operands"):
+        x0pad = padm(algo.x0, algo.semiring.identity)
+        revptr, revrows = bsr.reverse_deps()
+        return {
+            "rowptr": dev(bsr.rowptr),
+            "tilecols": dev(bsr.tilecols),
+            "tilerows": dev(bsr.tilerows),
+            "revptr": dev(revptr),
+            "revrows": dev(revrows),
+            "tiles": bsr.tiles,
+            "c": dev(padm(algo.c, algo.c_pad_fill)),
+            "x0": dev(x0pad),
+            "x0_host": x0pad,
+            "fixed": dev(padm(algo.fixed, 1.0)),  # pads pinned
+            "x": dev(x0pad.copy()),
+            "semiring": semiring,
+            "combine": algo.combine,
+            "bsr_stats": bsr.stats(),
+            "npad": npad,
+        }
 
 
 def run_async_block_kernel(

@@ -13,7 +13,7 @@ from repro_torch.obs.telemetry import (
     trace_from_block_activity,
     trace_from_col_rounds,
 )
-from repro_torch.obs.trace import NULL_SPAN, Span, Tracer, tspan
+from repro_torch.obs.trace import NULL_SPAN, Span, Tracer, child, self_times, tspan
 
 __all__ = [
     "ConvergenceTrace",
@@ -28,5 +28,7 @@ __all__ = [
     "NULL_SPAN",
     "Span",
     "Tracer",
+    "child",
+    "self_times",
     "tspan",
 ]

@@ -264,12 +264,14 @@ class GraphServer:
         rounds-per-query win before the per-tenant auto-tuner disables
         reordering for that tenant (`ServerStats.reorders_disabled`).
     trace : optional `repro_torch.obs.trace.Tracer` shared by the serving
-        loop and the per-family engine sessions. The server emits ``delta_apply`` spans,
-        ``reorder_swap`` / ``resolve`` events, and forwards the tracer to
-        each `AsyncBlockSession` (``pack`` / ``batch`` / ``sweep_call``
-        spans tagged with tenant, family, and graph version). Tracing is
-        batch-granular: it adds no readout beyond the audited per-batch
-        one.
+        loop and the per-family engine sessions. The server emits ``tick``,
+        ``delta_apply`` and, per ticket, ``query_build`` / ``query_check`` /
+        ``install`` / ``resolve`` spans (``ticket`` = `Ticket.id`), the
+        ``reorder_swap`` event and cache hits as ``resolve`` events, and
+        forwards the tracer to each `AsyncBlockSession` (``pack`` /
+        ``batch`` / ``swap_in`` spans, the first two tagged with tenant,
+        family, and graph version). Tracing adds no readout beyond the
+        audited per-batch and per-resolve ones.
     """
 
     def __init__(
@@ -474,7 +476,7 @@ class GraphServer:
                 if self.trace is not None:
                     self.trace.event(
                         "resolve", tenant=tenant, algo=algo, rounds=0,
-                        converged=True, from_cache=True,
+                        converged=True, from_cache=True, ticket=t.id,
                     )
                 return t
         self.scheduler.push(t)
@@ -489,7 +491,8 @@ class GraphServer:
         (0 = fully idle)."""
         # every synchronisation inside a tick is audited; the guard makes
         # any other one a fault
-        with _transfer_guard(self.transfer_guard, self.device):
+        with tspan(self.trace, "tick"), \
+                _transfer_guard(self.transfer_guard, self.device):
             return self._step_inner()
 
     def _step_inner(self) -> int:
@@ -674,22 +677,23 @@ class GraphServer:
     _VERTEX_PARAMS = ("source", "target", "seeds", "sources")
 
     def _build_query(self, t: Ticket) -> AlgoInstance:
-        g = self._tenant(t.tenant).g
-        for name in self._VERTEX_PARAMS:
-            if name in t.params:
-                v = np.asarray(t.params[name]).reshape(-1)
-                if len(v) and (v.min() < 0 or v.max() >= g.n):
-                    raise ValueError(
-                        f"{name}={t.params[name]} out of range for a graph "
-                        f"with n={g.n} vertices"
-                    )
-        q = get_algorithm(t.algo, g, **t.params)
-        if q.d != 1:
-            raise ValueError(
-                f"one query per ticket: {t.algo} with {t.params} builds "
-                f"d={q.d} columns; submit them as separate tickets"
-            )
-        return q
+        with tspan(self.trace, "query_build", ticket=t.id):
+            g = self._tenant(t.tenant).g
+            for name in self._VERTEX_PARAMS:
+                if name in t.params:
+                    v = np.asarray(t.params[name]).reshape(-1)
+                    if len(v) and (v.min() < 0 or v.max() >= g.n):
+                        raise ValueError(
+                            f"{name}={t.params[name]} out of range for a graph "
+                            f"with n={g.n} vertices"
+                        )
+            q = get_algorithm(t.algo, g, **t.params)
+            if q.d != 1:
+                raise ValueError(
+                    f"one query per ticket: {t.algo} with {t.params} builds "
+                    f"d={q.d} columns; submit them as separate tickets"
+                )
+            return q
 
     def _fail(self, t: Ticket, err: Exception) -> None:
         t.status = "failed"
@@ -755,13 +759,14 @@ class GraphServer:
 
     def _check_compat(self, fam: _Family, q: AlgoInstance, t: Ticket) -> None:
         p = fam.probe
-        ok = (
-            p.n == q.n and p.m == q.m and p.semiring == q.semiring
-            and p.combine == q.combine and p.residual == q.residual
-            and p.eps == q.eps
-            and np.array_equal(p.src, q.src) and np.array_equal(p.dst, q.dst)
-            and np.array_equal(p.w, q.w)
-        )
+        with tspan(self.trace, "query_check", ticket=t.id):
+            ok = (
+                p.n == q.n and p.m == q.m and p.semiring == q.semiring
+                and p.combine == q.combine and p.residual == q.residual
+                and p.eps == q.eps
+                and np.array_equal(p.src, q.src) and np.array_equal(p.dst, q.dst)
+                and np.array_equal(p.w, q.w)
+            )
         if not ok:
             raise ValueError(
                 f"{t.algo} with {t.params} is structurally incompatible with "
@@ -770,18 +775,19 @@ class GraphServer:
             )
 
     def _install(self, fam: _Family, j: int, t: Ticket, q: AlgoInstance) -> None:
-        x0, c, fixed = q.x0[:, 0], q.c[:, 0], q.fixed[:, 0]
-        order = self._tenant(fam.tenant).order
-        if order is not None:
-            # pack the id-space query into the session's rank space (host
-            # gathers: these (n,) operands are crossing to the device anyway)
-            x0, c, fixed = x0[order], c[order], fixed[order]
-        fam.session.swap_in(j, x0, c, fixed)
-        fam.tickets[j] = t
-        fam.queries[j] = q
-        t.status = "running"
-        if t.started_at is None:   # delta rebuilds re-install running tickets
-            t.started_at = self.stats.now()
+        with tspan(self.trace, "install", ticket=t.id):
+            x0, c, fixed = q.x0[:, 0], q.c[:, 0], q.fixed[:, 0]
+            order = self._tenant(fam.tenant).order
+            if order is not None:
+                # pack the id-space query into the session's rank space (host
+                # gathers: these (n,) operands are crossing to the device anyway)
+                x0, c, fixed = x0[order], c[order], fixed[order]
+            fam.session.swap_in(j, x0, c, fixed)
+            fam.tickets[j] = t
+            fam.queries[j] = q
+            t.status = "running"
+            if t.started_at is None:   # delta rebuilds re-install running tickets
+                t.started_at = self.stats.now()
 
     def _fill_slots(self, fam: _Family) -> None:
         free = fam.free_slots()
@@ -806,6 +812,14 @@ class GraphServer:
                 break
 
     def _resolve(self, fam: _Family, j: int, t: Ticket, converged: bool) -> None:
+        with tspan(self.trace, "resolve", tenant=t.tenant, algo=t.algo,
+                   rounds=t.rounds, converged=converged,
+                   graph_version=self._tenant(t.tenant).graph_version,
+                   ticket=t.id):
+            self._resolve_inner(fam, j, t, converged)
+
+    def _resolve_inner(self, fam: _Family, j: int, t: Ticket,
+                       converged: bool) -> None:
         q = fam.queries[j]
         ten = self._tenant(fam.tenant)
         # the ONE (n,)-sized device->host transfer of a query's lifecycle: a
@@ -826,11 +840,6 @@ class GraphServer:
         t.graph_version = self._tenant(t.tenant).graph_version
         self.tickets.pop(t.id, None)
         self.stats.record_resolve(t)
-        if self.trace is not None:
-            self.trace.event(
-                "resolve", tenant=t.tenant, algo=t.algo, rounds=t.rounds,
-                converged=converged, graph_version=t.graph_version,
-            )
         if self.cache is not None and converged:
             support = harness.column_support(
                 q.x0[:, 0], q.c[:, 0], q.fixed[:, 0],

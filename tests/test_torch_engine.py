@@ -207,15 +207,22 @@ def test_unknown_option_and_device_rejected():
 
 def test_trace_spans_and_transfer_guard_on_cpu():
     ta = algo_from_arrays(algo_fields(_instance("ms_sssp", 3)))
+    _, rank = _graph()
     tr = Tracer()
-    plain = rt.solve(ta, backend="kernel", bs=64, sweeps_per_call=4, device="cpu")
+    plain = rt.solve(ta, backend="kernel", bs=64, sweeps_per_call=4, device="cpu",
+                     rank=rank)
     traced = rt.solve(ta, backend="kernel", bs=64, sweeps_per_call=4, device="cpu",
-                      trace=tr, transfer_guard="disallow")
+                      rank=rank, trace=tr, transfer_guard="disallow")
     assert traced.x.tobytes() == plain.x.tobytes()
     names = [s.name for s in tr.spans]
     assert names.count("solve") == 1 and names.count("pack") == 1
-    assert names.count("sweep_call") >= 1
-    assert tr.find("solve")[0].attrs["rounds"] == traced.rounds
+    (solve,), (pack,) = tr.find("solve"), tr.find("pack")
+    # the solve span covers the relabel; the tiles are packed inside pack
+    assert [s.parent for s in tr.find("relabel")] == [solve.id]
+    assert [s.parent for s in tr.find("pack_tiles")] == [pack.id]
+    assert [s.parent for s in tr.find("pack_operands")] == [pack.id]
+    assert pack.parent == solve.id and solve.parent is None
+    assert solve.attrs["rounds"] == traced.rounds
 
 
 def test_paper_result_on_small_ic_like_graph():
