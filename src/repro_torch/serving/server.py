@@ -184,6 +184,9 @@ class _Family:
     key: tuple
     tenant: str
     probe: AlgoInstance                 # d = 1 structural reference
+    # the probe's n vertices and no edges: later tickets run their
+    # constructor on it for their columns and share the probe's edge arrays
+    columns: Graph
     session: AsyncBlockSession
     tickets: list                       # Optional[Ticket] per slot
     queries: list                       # Optional[AlgoInstance] per slot
@@ -266,7 +269,8 @@ class GraphServer:
     trace : optional `repro_torch.obs.trace.Tracer` shared by the serving
         loop and the per-family engine sessions. The server emits ``tick``,
         ``delta_apply`` and, per ticket, ``query_build`` / ``query_check`` /
-        ``install`` / ``resolve`` spans (``ticket`` = `Ticket.id`), the
+        ``install`` / ``resolve`` spans (``ticket`` = `Ticket.id`;
+        ``query_build``'s ``edges`` counts the edges its build read), the
         ``reorder_swap`` event and cache hits as ``resolve`` events, and
         forwards the tracer to each `AsyncBlockSession` (``pack`` /
         ``batch`` / ``swap_in`` spans, the first two tagged with tenant,
@@ -676,9 +680,18 @@ class GraphServer:
     # that would escape the per-ticket failure handling
     _VERTEX_PARAMS = ("source", "target", "seeds", "sources")
 
-    def _build_query(self, t: Ticket) -> AlgoInstance:
-        with tspan(self.trace, "query_build", ticket=t.id):
-            g = self._tenant(t.tenant).g
+    def _build_query(self, t: Ticket,
+                     fam: Optional[_Family] = None) -> AlgoInstance:
+        """``t``'s instance. Without ``fam`` (a family's probe) it is built
+        over the tenant's edges. A ticket admitted into the open family
+        ``fam`` differs from its probe only in ``x0``/``c``/``fixed``
+        (`scheduler.COLUMN_PARAMS`), and no constructor reads an edge to
+        build those: its constructor runs on ``fam.columns`` (the same n,
+        no edges), and the instance shares the probe's edge arrays. The
+        ``query_build`` span's ``edges`` counts the edges the build read."""
+        g = self._tenant(t.tenant).g
+        with tspan(self.trace, "query_build", ticket=t.id,
+                   edges=g.m if fam is None else 0):
             for name in self._VERTEX_PARAMS:
                 if name in t.params:
                     v = np.asarray(t.params[name]).reshape(-1)
@@ -687,7 +700,16 @@ class GraphServer:
                             f"{name}={t.params[name]} out of range for a graph "
                             f"with n={g.n} vertices"
                         )
-            q = get_algorithm(t.algo, g, **t.params)
+            if fam is None:
+                q = get_algorithm(t.algo, g, **t.params)
+            else:
+                # the probe's edges stand in for the ones the constructor
+                # would read; an edgeless graph has no closure to compute
+                p = fam.probe
+                q = dataclasses.replace(
+                    get_algorithm(t.algo, fam.columns, **t.params),
+                    src=p.src, dst=p.dst, w=p.w, exact_fn=None,
+                )
             if q.d != 1:
                 raise ValueError(
                     f"one query per ticket: {t.algo} with {t.params} builds "
@@ -730,9 +752,12 @@ class GraphServer:
                 "graph_version": ten.graph_version,
             },
         )
+        no_edges = np.zeros(0, np.int32)
+        columns = Graph(n, no_edges, no_edges,
+                        None if ten.g.w is None else np.zeros(0, np.float32))
         return _Family(
-            key=key, tenant=tenant, probe=probe, session=session,
-            tickets=[None] * d, queries=[None] * d,
+            key=key, tenant=tenant, probe=probe, columns=columns,
+            session=session, tickets=[None] * d, queries=[None] * d,
         )
 
     def _ensure_family(self, key: tuple) -> Optional[_Family]:
@@ -758,14 +783,18 @@ class GraphServer:
             return fam
 
     def _check_compat(self, fam: _Family, q: AlgoInstance, t: Ticket) -> None:
+        """``q``'s structure against the family's probe, in O(1): the
+        scalars its own constructor set, and the edge arrays by identity
+        (`_build_query` shares them). That every `scheduler.COLUMN_PARAMS`
+        entry leaves the edge arrays as they are, element by element, is
+        held by the tests."""
         p = fam.probe
         with tspan(self.trace, "query_check", ticket=t.id):
             ok = (
-                p.n == q.n and p.m == q.m and p.semiring == q.semiring
+                p.n == q.n and p.semiring == q.semiring
                 and p.combine == q.combine and p.residual == q.residual
                 and p.eps == q.eps
-                and np.array_equal(p.src, q.src) and np.array_equal(p.dst, q.dst)
-                and np.array_equal(p.w, q.w)
+                and p.src is q.src and p.dst is q.dst and p.w is q.w
             )
         if not ok:
             raise ValueError(
@@ -803,7 +832,7 @@ class GraphServer:
                     fam.probe_cache = None   # and compat-checked by identity
                 else:
                     try:
-                        q = self._build_query(t)
+                        q = self._build_query(t, fam)
                         self._check_compat(fam, q, t)
                     except (ValueError, KeyError, TypeError, IndexError) as e:
                         self._fail(t, e)
@@ -952,6 +981,7 @@ class GraphServer:
             else:
                 t.rounds = 0   # restart: solo-exact counts on the new graph
         fam.probe = probe_new
+        fam.columns = new.columns
         fam.session = new.session
         fam.tickets = new.tickets
         fam.queries = new.queries

@@ -368,6 +368,64 @@ def test_scheduler_and_family_key_match_reference():
         Scheduler("lifo")
 
 
+# ---------------------------------------------------------------------------
+# admission by columns: a ticket of an open family shares the probe's edges,
+# so COLUMN_PARAMS must name only parameters that leave the structure alone
+# ---------------------------------------------------------------------------
+
+# two values of each column parameter (vertex ids < N, one column each)
+COLUMN_VALUES = {"target": (3, 17), "seeds": ([3], [17]), "p_inj": (0.25, 0.4),
+                 "source": (3, 17), "sources": ([3], [17])}
+COLUMN_CASES = [(algo, param) for algo, params in sorted(COLUMN_PARAMS.items())
+                for param in (params or (None,))]
+
+
+@pytest.mark.parametrize("algo,param", COLUMN_CASES)
+def test_column_params_leave_the_structure_and_column_builds_match(algo, param):
+    a, b = ({}, {}) if param is None else (
+        {param: COLUMN_VALUES[param][0]}, {param: COLUMN_VALUES[param][1]})
+    full_a = rt.get_algorithm(algo, TGW, **a)
+    full_b = rt.get_algorithm(algo, TGW, **b)
+    for f in ("src", "dst", "w"):
+        np.testing.assert_array_equal(getattr(full_a, f), getattr(full_b, f), err_msg=f)
+    for f in ("semiring", "combine", "residual", "eps"):
+        assert getattr(full_a, f) == getattr(full_b, f), f
+    srv = GraphServer(TGW, slots=2, bs=BS, cache=False, device="cpu")
+    first, second = srv.submit(algo, a), srv.submit(algo, b)
+    assert first.family == second.family
+    fam = srv._ensure_family(first.family)
+    srv._fill_slots(fam)
+    assert fam.queries[0] is fam.probe and second.status == "running"
+    q = fam.queries[1]
+    assert all(getattr(q, f) is getattr(fam.probe, f) for f in ("src", "dst", "w"))
+    for f in ("x0", "c", "fixed"):
+        got, want = getattr(q, f), getattr(full_b, f)
+        assert (got.dtype, got.shape) == (want.dtype, want.shape), f
+        assert got.tobytes() == want.tobytes(), f
+    assert (q.name, q.monotone_dir, q.c_pad_fill) == (
+        full_b.name, full_b.monotone_dir, full_b.c_pad_fill)
+
+
+def test_a_misclassified_column_param_fails_the_ticket_loudly(monkeypatch):
+    """A table entry that lets a structural parameter vary inside a family
+    (here SSSP's eps) fails the ticket that would change it, as the
+    reference's element-by-element check does, with the same message."""
+    from repro.serving import scheduler as RS
+
+    for table in (COLUMN_PARAMS, RS.COLUMN_PARAMS):
+        monkeypatch.setitem(table, "sssp", ("source", "eps"))
+    r, t = _servers(slots=2, bs=BS, rounds_per_batch=4, cache=False)
+    ok = _submit_both(r, t, "sssp", {"source": 3})
+    bad = _submit_both(r, t, "sssp", {"source": 17, "eps": 2.5})
+    assert bad[1].family == ok[1].family
+    r.run()
+    t.run()
+    for rt_, tt in (ok, bad):
+        _check_pair(tt, rt_)
+    assert ok[1].status == "done" and bad[1].status == "failed"
+    assert "structurally incompatible" in bad[1].error
+
+
 def test_static_refill_and_validation_match_reference():
     for refill in ("continuous", "static"):
         r, t = _servers(slots=2, bs=BS, rounds_per_batch=2, refill=refill, cache=False)

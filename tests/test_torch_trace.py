@@ -31,14 +31,16 @@ def _graph():
     return TG.with_random_weights(g, lo=0.1, hi=1.0, seed=3)
 
 
-def _serve(trace, queries=12):
-    """A small kernel-backend server (multi-sweep, ranked) through to idle."""
+def _serve(trace, queries=12, algos=("ppr",)):
+    """A small kernel-backend server (multi-sweep, ranked) through to idle;
+    ``queries`` tickets of each of ``algos`` (ppr, sssp), submitted in turn."""
     g = _graph()
     srv = GraphServer(g, slots=4, bs=64, rounds_per_batch=8, backend="kernel",
                       sweeps_per_call=4, rank=np.random.default_rng(0).permutation(N),
                       trace=trace, device="cpu")
     for s in range(queries):
-        srv.submit("ppr", {"seeds": [s]})
+        for algo in algos:
+            srv.submit(algo, {"seeds": [s]} if algo == "ppr" else {"source": s})
     srv.run()
     return srv
 
@@ -81,6 +83,20 @@ def test_ids_parents_and_tickets():
     assert all(s.attrs["touched"] >= 1 for s in tr.find("swap_in"))
     js = spans[0].to_json()
     assert list(js)[:5] == ["name", "t_start", "duration_s", "id", "parent"]
+
+
+def test_query_build_reads_the_edges_once_a_family():
+    """Only a family's probe is built over the edges (``edges`` = m); every
+    later ticket of the family is built from its columns (``edges`` = 0)."""
+    tr = Tracer()
+    srv = _serve(tr, algos=("ppr", "sssp"))
+    builds = tr.find("query_build")
+    assert len(builds) == 24 and srv.stats.failed == 0
+    # tickets 0 and 1 open the ppr and the sssp family; the other 22 read 0
+    probes = [s for s in builds if s.attrs["edges"] != 0]
+    assert sorted(s.attrs["ticket"] for s in probes) == [0, 1]
+    assert all(s.attrs["edges"] == srv.g.m for s in probes)
+    assert len(tr.find("query_check")) == 22
 
 
 def test_self_time():
