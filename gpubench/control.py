@@ -9,6 +9,11 @@ query stream, and prints one JSON line: the control's numbers beside the
 cell's limits. A sound limit lies below every control reading. It runs on
 the card when there is one, else on the CPU; the benchmark's runs never
 run it.
+
+The control runs on the generated graph (version 0) alone, also for a mix
+whose graph changes under the window: a few hundred links changed among
+hundreds of thousands leave the reference's precision, which is what the
+control reads, where it was.
 """
 import argparse
 import json

@@ -15,6 +15,10 @@ a ``numpy.random.Generator``.
 Vertex ids are scrambled by a seeded permutation at the end, as a graph's
 ids arrive in no useful order (the idea of ``scrambled`` in the program's
 generators), so the processing order is the program's to find.
+
+A graph that changes under a run goes from one version to the next by
+`apply_delta`, the benchmark's own: the reference is built on the edge
+list of each version without the program's delta code.
 """
 from __future__ import annotations
 
@@ -58,3 +62,34 @@ def generate(spec: dict) -> EdgeList:
 
     rng = np.random.default_rng([int(spec["seed"]), 0x67726170])
     return load_module("generators", spec["generator"]).generate(spec, rng)
+
+
+def apply_delta(g: EdgeList, batch: dict) -> EdgeList:
+    """The next version of ``g``: the pairs ``(del_src[i], del_dst[i])``
+    removed, then ``(add_src[i], add_dst[i])`` appended with weights
+    ``add_w[i]``. Raises ``ValueError`` on an id out of range, a self-loop,
+    an inserted pair already in ``g`` (or twice in the batch) and a deleted
+    pair not in ``g`` (or twice in the batch), so that every version is one
+    simple graph and no batch can be read two ways."""
+    n = g.n
+    add_s, add_d, del_s, del_d = (np.asarray(batch[k], np.int64).reshape(-1) for k in
+                                  ("add_src", "add_dst", "del_src", "del_dst"))
+    add_w = np.asarray(batch["add_w"], np.float32).reshape(-1)
+    if not len(add_s) == len(add_d) == len(add_w) or len(del_s) != len(del_d):
+        raise ValueError("a batch's arrays differ in length")
+    for a in (add_s, add_d, del_s, del_d):
+        if len(a) and (a.min() < 0 or a.max() >= n):
+            raise ValueError(f"a vertex id out of range for n={n}")
+    if np.any(add_s == add_d) or np.any(del_s == del_d):
+        raise ValueError("a self-loop in the batch")
+    key = g.src * n + g.dst
+    add_key, del_key = add_s * n + add_d, del_s * n + del_d
+    if len(np.unique(add_key)) < len(add_key) or np.isin(add_key, key).any():
+        raise ValueError("an inserted pair is already present")
+    drop = np.isin(key, del_key)
+    if len(np.unique(del_key)) < len(del_key) or int(drop.sum()) != len(del_key):
+        raise ValueError("a deleted pair is absent")
+    keep = ~drop
+    return EdgeList(n, np.concatenate([g.src[keep], add_s]),
+                    np.concatenate([g.dst[keep], add_d]),
+                    np.concatenate([g.w[keep], add_w]))

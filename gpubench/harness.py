@@ -10,6 +10,16 @@ to the driver (which warms up, measures and, with ``trace``, profiles),
 checks a seeded sample of the answers against the plain reference, and
 reads the metrics. A new configuration, mix, check or metric is new files
 and new entries in ``BENCHMARK.json``; nothing here names one.
+
+An answer is ``(source, answer)`` or ``(source, answer, version)``: the
+version of the graph it was computed on, 0 the generated graph and ``v``
+the graph after the first ``v`` batches of the record's ``deltas``. The
+check groups the answers by version, rebuilds each version named, and
+only those, with `graphs.apply_delta`, calls the check once a version and
+takes each compared number's largest over the versions (every compared
+number is an error held under its limit). An answer that names a version
+never applied makes every compared number infinite. With one version the
+check is one call on the generated graph.
 """
 from __future__ import annotations
 
@@ -125,16 +135,11 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *, t0: float,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    check = load_module("checks", cell.mix["check"], cell.base)
-    sources = np.asarray([s for s, _ in rec["answers"]], np.int64)
-    got = np.stack([a for _, a in rec["answers"]], axis=1) if len(sources) else None
-    numbers = check.numbers(g, cell.config, sources, got, device=device) \
-        if got is not None else {}
-    log(f"check of {len(sources)} answers {time.perf_counter() - t_check:.3f} s: "
-        + ", ".join(f"{k} {v!r}" for k, v in numbers.items()))
-    compared = {k: {"value": numbers.get(k, float("inf")), "limit": float(lim)}
-                for k, lim in cell.limits.items()}
-    correct = (rec["attempted"] > 0 and rec["failed"] == 0 and len(sources) > 0
+    compared, versions = compare(cell, g, rec["answers"], rec.get("deltas", []), device)
+    log(f"check of {len(rec['answers'])} answers at {len(versions)} graph version(s) "
+        f"{versions} {time.perf_counter() - t_check:.3f} s: "
+        + ", ".join(f"{k} {v['value']!r}" for k, v in compared.items()))
+    correct = (rec["attempted"] > 0 and rec["failed"] == 0 and len(rec["answers"]) > 0
                and all(v["value"] <= v["limit"] for v in compared.values()))
     metrics = {}
     for m in cell.metrics:
@@ -154,6 +159,37 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *, t0: float,
                             "idle_gaps": prof["idle_gaps"]}
     out["compared"] = compared
     return out
+
+
+def compare(cell: Cell, g, answers: list, deltas: list, device: str):
+    """``(compared, versions)``: each limited number, the largest over the
+    graph versions the answers name, beside its limit; and those versions.
+    See the module's docstring."""
+    from gpubench import graphs
+
+    check = load_module("checks", cell.mix["check"], cell.base)
+    by_version: dict = {}
+    for a in answers:
+        by_version.setdefault(int(a[2]) if len(a) > 2 else 0, []).append(a)
+    versions = sorted(by_version)
+    numbers: dict = {}
+    if all(0 <= v <= len(deltas) for v in versions):
+        graph, at = g, 0
+        for v in versions:
+            for batch in deltas[at:v]:
+                graph = graphs.apply_delta(graph, batch)
+            at = v
+            sources = np.asarray([a[0] for a in by_version[v]], np.int64)
+            got = np.stack([a[1] for a in by_version[v]], axis=1)
+            for k, x in check.numbers(graph, cell.config, sources, got,
+                                      device=device).items():
+                numbers[k] = x if k not in numbers else float(np.maximum(numbers[k], x))
+    else:
+        log(f"answers name graph versions never applied: {versions} "
+            f"against {len(deltas)} batches")
+    compared = {k: {"value": numbers.get(k, float("inf")), "limit": float(lim)}
+                for k, lim in cell.limits.items()}
+    return compared, versions
 
 
 def device_record(dev, rec: dict) -> dict:
