@@ -18,13 +18,30 @@ already surfaces, never anything per-round on device:
                    ``active`` is the per-sweep share of blocks swept, read
                    in the batch's one readout (multi-sweep kernel only)
 ``tick``           one `GraphServer.step`
-``query_build``    a ticket's algorithm instance built (`_build_query`)
-``query_check``    its edge arrays compared with the family's (`_check_compat`)
+``query_build``    a ticket's algorithm instance built (`_build_query`;
+                   ``edges`` the edges it read: m for a family's probe, 0
+                   for a later ticket, built from its columns)
+``query_check``    its structure held to the family's probe in O(1), the
+                   edge arrays by identity (`_check_compat`)
 ``install``        a ticket put into a slot (`_install`)
 ``swap_in``        a column re-initialised on the device
                    (`AsyncBlockSession.swap_in`; ``touched`` counts the
                    depth-1 out-closure that marks blocks dirty)
-``delta_apply``    one `GraphServer.apply_delta` ingestion
+``delta_apply``    one `GraphServer.apply_delta` ingestion (``inserted`` /
+                   ``deleted`` links, ``families`` rebuilt, in-flight
+                   columns ``carried`` warm and ``absorbed`` by push, and
+                   ``closure``, the delta's depth-1 out-closure, where
+                   ``push_threshold > 0`` computed it)
+``delta_graph``    inside ``delta_apply``: the graph mutated, the cache
+                   invalidated, the order maintained or regionally re-ranked
+``family_rebuild`` inside ``delta_apply`` (or `GraphServer.swap_order`):
+                   one family re-packed (its ``pack`` spans) and its
+                   in-flight columns carried over
+``carry``          inside ``family_rebuild``: one in-flight column re-made
+                   on the new graph, re-installed, carried warm (``warm``),
+                   any push absorption; ``slot``, and ``touched`` as
+                   ``swap_in``'s. A rebuild opens no ``install`` or
+                   ``swap_in``: those stay the admission of new tickets
 ``reorder_swap``   instantaneous event: one online order swap
 ``resolve``        a ticket resolved: the column readout, relabel, tuner
                    and cache put (tenant / algo / rounds / converged — the
@@ -83,6 +100,7 @@ SPAN_NAMES = (
     "solve", "relabel", "pack", "pack_tiles", "pack_operands", "batch",
     "tick", "query_build", "query_check", "install", "swap_in",
     "delta_apply", "reorder_swap", "resolve",
+    "delta_graph", "family_rebuild", "carry",
 )
 
 # the cheapest profiler range this PyTorch has: both take the range's name

@@ -72,7 +72,7 @@ from repro_torch.engine.incremental import (
 )
 from repro_torch.graphs.delta import GraphDelta
 from repro_torch.graphs.graph import Graph, check_permutation, rank_to_order
-from repro_torch.obs.trace import Tracer, tspan
+from repro_torch.obs.trace import NULL_SPAN, Tracer, tspan
 from repro_torch.serving.cache import ResultCache
 from repro_torch.serving.scheduler import Scheduler, canon, family_key
 from repro_torch.serving.stats import ServerStats
@@ -178,6 +178,17 @@ class _Tenant:
 
 
 @dataclasses.dataclass
+class _Rebuilt:
+    """What one family rebuild did, for the ``delta_apply`` span and the
+    delta counters."""
+
+    carried: int                 # in-flight columns carried warm
+    absorbed: int                # of those, columns push absorbed
+    closure: Optional[int]       # the delta's depth-1 out-closure, where
+                                 # push_threshold > 0 computed it
+
+
+@dataclasses.dataclass
 class _Family:
     """One resident state matrix + its slot bookkeeping."""
 
@@ -274,8 +285,13 @@ class GraphServer:
         ``reorder_swap`` event and cache hits as ``resolve`` events, and
         forwards the tracer to each `AsyncBlockSession` (``pack`` /
         ``batch`` / ``swap_in`` spans, the first two tagged with tenant,
-        family, and graph version). Tracing adds no readout beyond the
-        audited per-batch and per-resolve ones.
+        family, and graph version). A delta is a ``delta_apply`` span
+        (``inserted``, ``deleted``, ``families``, ``carried``,
+        ``absorbed``, and ``closure`` where ``push_threshold`` computed
+        it) over ``delta_graph`` and one ``family_rebuild`` a family, whose
+        in-flight columns each go back in under a ``carry`` span and
+        never under ``install`` or ``swap_in``. Tracing adds no readout
+        beyond the audited per-batch and per-resolve ones.
     """
 
     def __init__(
@@ -578,10 +594,31 @@ class GraphServer:
         """
         ten = self._tenant(tenant)
         with tspan(self.trace, "delta_apply", tenant=tenant,
-                   graph_version=ten.graph_version + 1):
-            self._apply_delta_inner(delta, ten)
+                   graph_version=ten.graph_version + 1,
+                   inserted=len(delta.add_src), deleted=len(delta.del_src)) as sp:
+            self._apply_delta_inner(delta, ten, sp)
 
-    def _apply_delta_inner(self, delta: GraphDelta, ten: _Tenant) -> None:
+    def _apply_delta_inner(self, delta: GraphDelta, ten: _Tenant, sp) -> None:
+        with tspan(self.trace, "delta_graph"):
+            rank_old = self._delta_graph(delta, ten)
+        families = carried = absorbed = 0
+        closure = None
+        for fam in self._families.values():
+            if fam.tenant == ten.name:
+                rebuilt = self._rebuild_family(fam, delta=delta, rank_old=rank_old)
+                families += 1
+                carried += rebuilt.carried
+                absorbed += rebuilt.absorbed
+                if rebuilt.closure is not None:
+                    closure = rebuilt.closure
+        self.stats.record_delta_columns(carried, absorbed, tenant=ten.name)
+        if sp is not NULL_SPAN:
+            sp.set(families=families, carried=carried, absorbed=absorbed,
+                   **({} if closure is None else {"closure": closure}))
+
+    def _delta_graph(self, delta: GraphDelta, ten: _Tenant) -> Optional[np.ndarray]:
+        """The tenant's graph, version, cache and order moved to the delta;
+        returns the order its families were packed in."""
         tenant = ten.name
         g_new = delta.apply(ten.g)
         ten.graph_version += 1
@@ -612,9 +649,7 @@ class GraphServer:
                     members = ten.tracker.region_members(decayed)
                     rank2 = regional_rerank(g_new, rank_ext, members)
                     self._set_rank(ten, rank2)
-        for fam in self._families.values():
-            if fam.tenant == tenant:
-                self._rebuild_family(fam, delta=delta, rank_old=rank_old)
+        return rank_old
 
     # ------------------------------------------------------------ internals
 
@@ -805,18 +840,30 @@ class GraphServer:
 
     def _install(self, fam: _Family, j: int, t: Ticket, q: AlgoInstance) -> None:
         with tspan(self.trace, "install", ticket=t.id):
-            x0, c, fixed = q.x0[:, 0], q.c[:, 0], q.fixed[:, 0]
-            order = self._tenant(fam.tenant).order
-            if order is not None:
-                # pack the id-space query into the session's rank space (host
-                # gathers: these (n,) operands are crossing to the device anyway)
-                x0, c, fixed = x0[order], c[order], fixed[order]
+            self._install_inner(fam, j, t, q)
+
+    def _install_inner(self, fam: _Family, j: int, t: Ticket, q: AlgoInstance,
+                       sp=None) -> None:
+        """Put ``q`` into slot ``j``. With ``sp`` (a rebuild's open
+        ``carry`` span) no ``swap_in`` span opens: the column goes in
+        through the session's unspanned swap and ``sp`` takes its
+        ``touched``, so a rebuild's time reads as the rebuild's and never
+        as the admission of a ticket."""
+        x0, c, fixed = q.x0[:, 0], q.c[:, 0], q.fixed[:, 0]
+        order = self._tenant(fam.tenant).order
+        if order is not None:
+            # pack the id-space query into the session's rank space (host
+            # gathers: these (n,) operands are crossing to the device anyway)
+            x0, c, fixed = x0[order], c[order], fixed[order]
+        if sp is None:
             fam.session.swap_in(j, x0, c, fixed)
-            fam.tickets[j] = t
-            fam.queries[j] = q
-            t.status = "running"
-            if t.started_at is None:   # delta rebuilds re-install running tickets
-                t.started_at = self.stats.now()
+        else:
+            fam.session._swap_in_inner(j, x0, c, fixed, sp)
+        fam.tickets[j] = t
+        fam.queries[j] = q
+        t.status = "running"
+        if t.started_at is None:   # delta rebuilds re-install running tickets
+            t.started_at = self.stats.now()
 
     def _fill_slots(self, fam: _Family) -> None:
         free = fam.free_slots()
@@ -895,7 +942,18 @@ class GraphServer:
     def _rebuild_family(
         self, fam: _Family, delta: Optional[GraphDelta] = None,
         rank_old: Optional[np.ndarray] = None,
-    ) -> None:
+    ) -> _Rebuilt:
+        """Re-pack ``fam`` on its tenant's current graph and order and carry
+        its in-flight columns over: a ``family_rebuild`` span, inside it the
+        new session's ``pack`` and one ``carry`` span a column."""
+        with tspan(self.trace, "family_rebuild", family=fam.probe.name,
+                   in_flight=len(fam.occupied())):
+            return self._rebuild_family_inner(fam, delta, rank_old)
+
+    def _rebuild_family_inner(
+        self, fam: _Family, delta: Optional[GraphDelta],
+        rank_old: Optional[np.ndarray],
+    ) -> _Rebuilt:
         ten = self._tenant(fam.tenant)
         probe_old = fam.probe
         probe_new = remake(probe_old, ten.g)
@@ -925,15 +983,21 @@ class GraphServer:
         # touched-neighborhood cost right now, and the next family batch's
         # sweep is just the verification round
         absorb = False
+        closure = None
         if (self.push_threshold > 0.0 and delta is not None
                 and self.delta_mode == "warm" and occupied):
             g_new = self._tenant(fam.tenant).g
-            closure = delta.touched_vertices(g_new, closure=1)
-            absorb = len(closure) / max(g_new.n, 1) < self.push_threshold
+            closure = len(delta.touched_vertices(g_new, closure=1))
+            absorb = closure / max(g_new.n, 1) < self.push_threshold
+        absorbed = 0
         for j, t, q_old in occupied:
-            q_new = remake(q_old, ten.g)
-            self._install(new, j, t, q_new)
-            if carry:
+            with tspan(self.trace, "carry", slot=j, ticket=t.id, warm=carry) as sp:
+                q_new = remake(q_old, ten.g)
+                # the unspanned install: no install / swap_in span opens here
+                self._install_inner(new, j, t, q_new, sp)
+                if not carry:
+                    t.rounds = 0   # restart: solo-exact counts on the new graph
+                    continue
                 # warm carry on the device (the torch mirror of `engine.
                 # incremental.warm_state` for one column): surviving
                 # vertices keep their values, appended vertices start at
@@ -971,6 +1035,7 @@ class GraphServer:
                             np.asarray(res.x, np.float32).reshape(-1), dev
                         )
                         rounds += res.rounds
+                        absorbed += 1
                 if ten.order is not None:
                     col = harness.gather_rows(col, ten.order)
                 new.session.load_state_column(j, col)
@@ -978,10 +1043,10 @@ class GraphServer:
                 # rounds the warm continuation (and any push absorption)
                 # already consumed
                 new.session.set_col_rounds(j, rounds)
-            else:
-                t.rounds = 0   # restart: solo-exact counts on the new graph
         fam.probe = probe_new
         fam.columns = new.columns
         fam.session = new.session
         fam.tickets = new.tickets
         fam.queries = new.queries
+        return _Rebuilt(carried=len(occupied) if carry else 0, absorbed=absorbed,
+                        closure=closure)

@@ -83,6 +83,12 @@ class ServerStats:
         self._deltas = r.counter(
             "repro_deltas_applied_total",
             "Graph deltas applied", ("tenant",))
+        self._delta_carried = r.counter(
+            "repro_delta_columns_carried_total",
+            "In-flight columns a delta rebuild carried warm", ("tenant",))
+        self._delta_absorbed = r.counter(
+            "repro_delta_columns_absorbed_total",
+            "Carried columns push absorbed during a delta rebuild", ("tenant",))
         self._deadline_misses = r.counter(
             "repro_deadline_misses_total",
             "Resolved past the ticket deadline", ("tenant", "family"))
@@ -159,6 +165,14 @@ class ServerStats:
         return int(self._deltas.total())
 
     @property
+    def delta_columns_carried(self) -> int:
+        return int(self._delta_carried.total())
+
+    @property
+    def delta_columns_absorbed(self) -> int:
+        return int(self._delta_absorbed.total())
+
+    @property
     def deadline_misses(self) -> int:
         return int(self._deadline_misses.total())
 
@@ -220,6 +234,14 @@ class ServerStats:
     def record_delta(self, tenant: Optional[str] = None) -> None:
         """A graph delta landed on the tenant's device-resident CSR."""
         self._deltas.inc(tenant=self._lab(tenant))
+
+    def record_delta_columns(self, carried: int, absorbed: int,
+                             tenant: Optional[str] = None) -> None:
+        """A delta's rebuilds carried ``carried`` in-flight columns warm,
+        ``absorbed`` of them by push."""
+        ten = self._lab(tenant)
+        self._delta_carried.inc(carried, tenant=ten)
+        self._delta_absorbed.inc(absorbed, tenant=ten)
 
     def record_reorder(self, tenant: str) -> None:
         """An order swap (regional re-rank or explicit swap_order) landed."""
@@ -298,6 +320,8 @@ class ServerStats:
             "rounds_total": self.rounds_total,
             "round_slots_total": self.round_slots_total,
             "deltas_applied": self.deltas_applied,
+            "delta_columns_carried": self.delta_columns_carried,
+            "delta_columns_absorbed": self.delta_columns_absorbed,
             "deadline_misses": self.deadline_misses,
             "tenant_batches": self.tenant_batches,
             "tenant_rounds": self.tenant_rounds,

@@ -246,6 +246,93 @@ def test_push_absorption_runs_the_torch_push(monkeypatch):
     assert calls and set(calls) == {("push", "torch", "cpu")}
 
 
+# the spans a ticket's admission or resolution opens: none of them may open
+# inside an apply, so that their idle time reads as admission alone
+PER_TICKET = ("query_build", "query_check", "install", "swap_in", "resolve")
+
+
+def _port_delta_run(trace, push_threshold, backend):
+    """`_delta_run`'s port side alone, warm and tightening: the session
+    state and accounting read right after the delta landed, and the
+    tickets run to the end."""
+    kw = dict(slots=3, bs=BS, rounds_per_batch=2, delta_mode="warm",
+              push_threshold=push_threshold)
+    if backend == "kernel":
+        kw["sweeps_per_call"] = 2
+    t = GraphServer(_tgraph(GW), backend=backend, device="cpu", trace=trace, **kw)
+    tickets = [t.submit("sssp", {"source": 0}), t.submit("ppr", {"seeds": [7]})]
+    t.step()
+    in_flight = sum(len(f.occupied()) for f in t._families.values())
+    delta = _tdelta(random_delta(GW, frac_add=0.01 if push_threshold == 0 else 0.001,
+                                 frac_del=0.0, frac_rew=0.0, n_add_vertices=3, seed=5))
+    t.apply_delta(delta)
+    landed = [(f.session.state.clone(), f.session.col_rounds.clone())
+              for f in t._families.values()]
+    tickets.append(t.submit("sssp", {"source": 11}))
+    t.run()
+    return t, delta, in_flight, landed, tickets
+
+
+@pytest.mark.parametrize("backend", ["torch", "kernel"])
+@pytest.mark.parametrize("push_threshold", [0.0, 0.5])
+def test_delta_spans_counters_and_bits(push_threshold, backend):
+    """An apply under a tracer: ``delta_apply`` with its attributes over
+    ``delta_graph``, one ``family_rebuild`` a family and one ``carry`` an
+    in-flight column; no admission or resolution span inside it; the two
+    delta counters; and the same bits as the run without a tracer."""
+    from repro_torch.obs.trace import Tracer
+
+    tr = Tracer()
+    t, delta, in_flight, landed, tickets = _port_delta_run(tr, push_threshold, backend)
+    absorbs = push_threshold > 0
+    assert in_flight == 2
+    (apply,) = tr.find("delta_apply")
+    want = {"inserted": len(delta.add_src), "deleted": 0, "families": 2,
+            "carried": in_flight, "absorbed": in_flight if absorbs else 0}
+    assert {k: apply.attrs[k] for k in want} == want
+    assert ("closure" in apply.attrs) == absorbs
+    if absorbs:
+        assert 0 < apply.attrs["closure"] < 0.5 * t.g.n
+    by_id = {s.id: s for s in tr.spans}
+
+    def ancestors(s):
+        while s.parent is not None:
+            s = by_id[s.parent]
+            yield s
+
+    assert [by_id[s.parent].name for s in tr.find("delta_graph")] == ["delta_apply"]
+    rebuilds = tr.find("family_rebuild")
+    assert len(rebuilds) == 2 and all(s.parent == apply.id for s in rebuilds)
+    carries = tr.find("carry")
+    assert len(carries) == in_flight
+    assert {by_id[s.parent].name for s in carries} == {"family_rebuild"}
+    assert all(s.attrs["warm"] for s in carries)
+    assert sorted(s.attrs["ticket"] for s in carries) == [tickets[0].id, tickets[1].id]
+    if backend == "kernel":
+        assert all(s.attrs["touched"] >= 1 for s in carries)
+    # the new sessions' packs sit under their rebuilds
+    assert sum(any(a.name == "family_rebuild" for a in ancestors(s))
+               for s in tr.find("pack")) == 2
+    inside = [s.name for s in tr.spans if any(a is apply for a in ancestors(s))]
+    assert not set(inside) & set(PER_TICKET), inside
+    assert {"delta_graph", "family_rebuild", "carry", "pack"} <= set(inside)
+    text = t.metrics_text()
+    assert f'repro_delta_columns_carried_total{{tenant="default"}} {in_flight}' in text
+    absorbed = in_flight if absorbs else 0
+    assert f'repro_delta_columns_absorbed_total{{tenant="default"}} {absorbed}' in text
+    summary = t.stats.summary()
+    assert (summary["delta_columns_carried"], summary["delta_columns_absorbed"]) == \
+        (in_flight, absorbed)
+    # the tracer changes no bit
+    t0, _, _, landed0, tickets0 = _port_delta_run(None, push_threshold, backend)
+    for (x, r), (x0, r0) in zip(landed, landed0, strict=True):
+        assert x.numpy().tobytes() == x0.numpy().tobytes()
+        assert torch.equal(r, r0)
+    for a, b in zip(tickets, tickets0, strict=True):
+        assert (a.status, a.rounds, a.graph_version) == (b.status, b.rounds, b.graph_version)
+        assert a.result.tobytes() == b.result.tobytes()
+
+
 def _two_component_graph():
     ga = RG.powerlaw_cluster(3 * BS, 4, p=0.3, seed=3)
     gb = RG.powerlaw_cluster(3 * BS, 4, p=0.3, seed=4)
@@ -495,11 +582,14 @@ def test_metrics_text_and_trace_match_reference():
     r.apply_delta(delta)
     t.apply_delta(_tdelta(delta))
 
-    def strip_time(text):
-        return [ln for ln in text.splitlines()
-                if "seconds" not in ln]   # latency / wait are wall clocks
+    def strip_time(text, own=()):
+        return [ln for ln in text.splitlines()   # latency / wait are wall clocks
+                if "seconds" not in ln and not any(m in ln for m in own)]
 
-    assert strip_time(t.metrics_text()) == strip_time(r.metrics_text())
+    # the port's own delta counters are not the reference's to hold
+    own = ("repro_delta_columns_carried_total", "repro_delta_columns_absorbed_total")
+    assert strip_time(t.metrics_text(), own) == strip_time(r.metrics_text())
+    assert all(f'{m}{{tenant="default"}} 0' in t.metrics_text() for m in own)
     # the reference's own spans, in its order; the port's further spans and
     # the retired sweep_call are not the reference's to hold
     shared = set(SPAN_NAMES) - {"sweep_call"}
